@@ -27,7 +27,7 @@ def resolve_device(name: str) -> torch.device:
     instead of silently running on the CPU."""
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available on this host; pass --device cpu to evaluate on the CPU")
+            "CUDA is not available on this host; pass --device cpu to run on the CPU")
     return torch.device(name)
 
 

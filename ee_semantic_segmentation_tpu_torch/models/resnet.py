@@ -145,9 +145,50 @@ def conv(cin: int, cout: int, k: int, stride: int = 1, dilation: int = 1,
                      dilation=dilation, bias=bias)
 
 
-def bn(c: int) -> nn.BatchNorm2d:
-    # flax BatchNorm(momentum=0.9) == torch momentum 0.1; eps 1e-5 in both
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's training statistics.
+
+    In training, flax normalises with the batch mean and the *biased* batch
+    variance and moves ``batch_stats`` toward those same two values
+    (``var <- 0.9 var + 0.1 E[(x - E x)^2]``); ``nn.BatchNorm2d`` moves
+    ``running_var`` toward the *unbiased* variance, n/(n - 1) times larger
+    (a factor of 2 for the ASPP pooling branch at batch 2), and refuses one
+    value per channel, which flax takes (the pooled (1, C, 1, 1) tensor at
+    batch 1).  Here, in training:
+
+    * the output is ``torch.native_batch_norm`` in training mode without
+      running buffers: one pass for the biased batch statistics (accumulated
+      in at least float32), one to normalise, and the fused backward.  With
+      one value per channel the variance is 0, so the output is the shift
+      ``bias`` and the input gradient 0, as in flax;
+    * under ``no_grad`` the running buffers take flax's update with
+      ``momentum`` 0.1 (flax's 0.9) from the mean and inverse standard
+      deviation that call returns, the biased variance being
+      ``invstd^-2 - eps``: the input is not read a third time.
+
+    Eval mode is ``nn.BatchNorm2d``'s own: ``F.batch_norm`` with the running
+    statistics.  Parameter and buffer names are ``nn.BatchNorm2d``'s, so
+    state dicts and ``models/from_jax.py`` are unchanged.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            invstd = invstd.to(torch.promote_types(invstd.dtype, torch.float32))
+            var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def bn(c: int) -> BatchNorm:
+    # flax BatchNorm(momentum=0.9) == momentum 0.1 here; eps 1e-5 in both
+    return BatchNorm(c, eps=1e-5, momentum=0.1)
 
 
 class ResNetStem(nn.Module):

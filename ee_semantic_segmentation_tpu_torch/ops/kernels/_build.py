@@ -2,8 +2,9 @@
 
 ``csrc/*.cu`` compile into one shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds) under ``_build/`` beside
-this file.  The library's file name carries a hash of the sources and
-flags, so an edited source builds anew and an unchanged one is reused.
+this file: one nvcc per source, all started together, then one link.  The
+library's file name carries a hash of the sources and of the compile and
+link flags, so an edited source builds anew and an unchanged one is reused.
 There is no fallback: a missing ``nvcc`` or a failed build raises, naming
 the command.
 """
@@ -21,9 +22,10 @@ import subprocess
 CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "ee_threads_per_block": ([], _I),
     "ee_error_string": ([_I], ctypes.c_char_p),
@@ -35,6 +37,9 @@ _SIGNATURES = {
     # N, h, w, C, H, W, inv_norm, labels_out, partial, ent_out, stream
     "ee_upsample_entropy_argmax": (
         [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
+    "ee_sort_log2_tile": ([], _I),
+    # key_in, pay_in, key_is_float, B, P, key_out, pay_out, scr_key, scr_pay, stream
+    "ee_sort_rows": ([_P, _P, _I, _L, _L, _P, _P, _P, _P, _P], _I),
 }
 
 
@@ -50,26 +55,38 @@ def build(build_dir: pathlib.Path = BUILD_DIR) -> pathlib.Path:
     ``.so`` path.  nvcc's output (``-Xptxas -v``: registers, spills) is kept
     beside it in a ``.log``."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.read_bytes())
-    so = pathlib.Path(build_dir) / f"libee_upsample_heads_{digest.hexdigest()[:16]}.so"
+    so = pathlib.Path(build_dir) / f"libee_kernels_{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     nvcc = find_nvcc()
-    cmd = [nvcc or "nvcc", *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    cmds = [[nvcc or "nvcc", *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for src, o in zip(sources, objs)]
+    cmds.append([nvcc or "nvcc", *LINK_FLAGS, "-o", str(tmp), *map(str, objs)])
     if nvcc is None:
         raise RuntimeError(
-            "cannot build the CUDA kernels: nvcc not found (set CUDA_HOME or put "
-            f"nvcc on PATH); the build command is: {' '.join(cmd)}")
+            "cannot build the CUDA kernels: nvcc not found (set CUDA_HOME or put nvcc on "
+            f"PATH); the build commands are: {' ; '.join(' '.join(c) for c in cmds)}")
     so.parent.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    log = []
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds[:-1]]
+        steps = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in steps):
+            proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+            steps.append((cmds[-1], proc.stdout + proc.stderr, proc.returncode))
+        for cmd, out, rc in steps:
+            log.append(out)
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed with exit code {rc}: {' '.join(cmd)}\n{out}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, so)
     return so
 

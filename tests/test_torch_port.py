@@ -32,6 +32,15 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "ee_semantic_segmentation_tpu_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes at once: a full-width
+    ResNet on 8 intra-op threads per process oversubscribes the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(min(before, 2))
+    yield
+    torch.set_num_threads(before)
+
 def _perturbed_variables(state, seed=0):
     """numpy {"params", "batch_stats"} of ``state`` with seeded BN running
     stats (mean != 0, var != 1), BN scale/shift and conv biases."""
