@@ -10,9 +10,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. environment: torch/CUDA/nvcc versions and the card's name and power limit;
 2. build: compile the CUDA kernels from ``csrc/`` with nvcc;
 3. kernel vs plain version on the card (TF32 off), at the flagship eval
-   shape (N=16, 64x64 -> 512x512, C=21) and a ragged one: argmax maps,
-   confusion counts and entropies must agree; kernel, plain and library
-   times are medians of 20 runs timed with CUDA events;
+   shape (N=16, 64x64 -> 512x512, C=21) and a ragged one: argmax maps of
+   kernels B and C, confusion counts and entropies must agree; kernel,
+   plain and library times are medians of 20 runs timed with CUDA events;
 3b. the sort kernel D vs its plain version (TF32 off) at the flagship's
    Lovász row shapes (63 rows of 2^22, 1008 of 2^18), one and two tiles,
    1024, a ragged row, heavy ties and permutation keys with a float32
@@ -22,18 +22,31 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with ``torch.profiler``; then the multi-exit Lovász loss and
    its gradient with the kernel vs with the plain sort on flagship-shaped
    logits (3, 16, 512, 512, 21);
+3c. the histogram kernels E and F vs their plain versions (TF32 off) at the
+   flagship's ``-G 1024`` row shapes (63 rows of 2^22, 1008 of 2^18), a
+   ragged row with 128 and with the largest supported bins, an all-void
+   and an all-tied row: E's counts must equal the plain version's exactly,
+   its error sums agree within TOL_HIST_SUM_RTOL, F's output must equal
+   the plain version's bit for bit; kernel, plain, library and bound times
+   at both flagship shapes; then the ``-G 1024`` multi-exit Lovász value
+   and gradient with the kernels vs with the plain versions on
+   flagship-shaped logits (3, 16, 512, 512, 21);
 4. eval main path: the flagship branchy DeepLabV3-ResNet50 at 512² with
    seeded random weights, saved as a checkpoint and evaluated through the
-   CLIs ``eval_miou`` and ``eval_br_ent`` with the kernel head (launch
-   counts checked) and with the plain head (results must agree), then the
-   eval throughput of both evaluators over the same pre-loaded batches;
+   CLIs ``eval_miou``, ``eval_br_ent`` and ``eval_br_sim`` (ssim and nmi)
+   with the kernel head (launch counts checked) and with the plain head
+   (results must agree), and once through ``eval_br_images``; the entropy
+   and similarity gates also at a tau that splits the images; then the
+   eval throughput of the evaluators over the same pre-loaded batches;
 4b. training main path: the flagship trained through the CLIs
-   ``main_bradeepv3`` (per-batch and per-image ``-P`` Lovász) and
-   ``main_bradeepv3_ce`` for one epoch of the synthetic set (4 steps of
-   batch 16 at 512²): sort launches counted (2 per step for Lovász, 0 for
-   CE), finite losses, the JAX package's CSV layouts, and each checkpoint
-   evaluated by ``eval_miou``; then training images/s over pre-loaded
-   batches and the share of a step spent in the sort;
+   ``main_bradeepv3`` (per-batch and per-image ``-P`` Lovász, and the
+   histogram Lovász ``-G 1024``) and ``main_bradeepv3_ce`` for one epoch of
+   the synthetic set (4 steps of batch 16 at 512²): kernel launches counted
+   (2 sorts per step for the sorted Lovász, one E and one F per step and
+   no sort for ``-G``, none for CE), finite losses, the JAX package's CSV
+   layouts, and each checkpoint evaluated by ``eval_miou``; then training
+   images/s over pre-loaded batches and the share of a step spent in the
+   loss's kernels;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -67,6 +80,14 @@ TOL_MIOU_ABS = 1e-4        # kernel head vs plain head, per-exit mIoU
 TOL_LOVASZ_RTOL = 1e-5     # Lovász value, kernel sort vs plain sort: the same
 #                            pairs in another order within exact ties, and
 #                            another float association of the row sums
+TOL_HIST_SUM_RTOL = 1e-4   # E's error sums vs the plain version's: both
+#                            are float32 atomic sums in varying order; the
+#                            plain version adds each bucket's ~4k terms one
+#                            by one (worst-case drift n * 2^-24 ~ 2.4e-4,
+#                            expected sqrt(n) * 2^-24 ~ 4e-6), the kernel in
+#                            two levels of ~64 terms
+TOL_HIST_LOVASZ_RTOL = 1e-5  # -G loss, kernels vs plain versions: the same
+#                              tables (exact counts), error sums as above
 TOL_LOVASZ_GRAD_REL = 0.05  # Lovász gradient, kernel sort vs plain sort:
 #                             max|d| <= 0.05 max|grad| and |d| <= 0.05 |grad|
 #                             (norms over all logits).  f32 logits tie often
@@ -80,6 +101,7 @@ TRAIN_ACCUM = 1            # --accum_steps of the training runs at batch 16
 # 3 exits x 21 classes): per-batch Lovász (the default) and per-image (-P)
 SORT_MAIN_SHAPE = "flagship per-batch 63x2^22"
 SORT_PER_IMAGE_SHAPE = "flagship per-image 1008x2^18"
+HIST_BINS = 1024  # -G of the training runs
 
 
 def check(cond: bool, msg: str) -> None:
@@ -111,9 +133,15 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def bound(nbytes, ops):
+    """(least ms, what bounds it): max(bytes / HBM rate, ops / f32 rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def bounds_ms(N, h, w, H, W, count, esize):
-    """Least time the card could take for each kernel's work at these
-    inputs: max(bytes / HBM rate, operations / f32 rate).
+    """Least time the card could take for each upsample kernel's work at
+    these inputs: max(bytes / HBM rate, operations / f32 rate).
 
     Bytes: each input read once, each output written once.  Operations
     (float32, one per add, multiply, compare, exp or log; an FMA is two) of
@@ -121,17 +149,16 @@ def bounds_ms(N, h, w, H, W, count, esize):
     and each output value (H*W*C) takes one multiply and one FMA (3), then
     one compare per output value for the argmax.  B adds per output value
     a subtract, an exp, an add and an FMA (5) and per pixel a log, a divide
-    and a subtract (3).  Kernel A only touches the ``count`` valid rows."""
+    and a subtract (3).  Kernel A only touches the ``count`` valid rows; C
+    is B without the entropy."""
     up = H * w * C * 3 + H * W * C * 3 + H * W * C
-    a_bytes = count * (h * w * C * esize + H * W * 4) + 3 * C * 4 + (H + W) * 16
-    a_ops = count * up
-    b_bytes = N * (h * w * C * esize + H * W * 4 + 4) + (H + W) * 16
-    b_ops = N * (up + H * W * C * 5 + H * W * 3)
-    out = {}
-    for name, nbytes, ops in (("A", a_bytes, a_ops), ("B", b_bytes, b_ops)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-        out[name] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out
+    maps_bytes = N * (h * w * C * esize + H * W * 4) + (H + W) * 16
+    return {
+        "A": bound(count * (h * w * C * esize + H * W * 4) + 3 * C * 4 + (H + W) * 16,
+                   count * up),
+        "B": bound(maps_bytes + N * 4, N * (up + H * W * C * 5 + H * W * 3)),
+        "C": bound(maps_bytes, N * up),
+    }
 
 
 def kernel_vs_plain(U, torch):
@@ -150,20 +177,25 @@ def kernel_vs_plain(U, torch):
         conf_p = U.upsample_argmax_confusion_plain(logits, labels, count, (H, W))
         maps_k, ent_k = U.upsample_entropy_argmax(logits, (H, W))
         maps_p, ent_p = U.upsample_entropy_argmax_plain(logits, (H, W))
+        maps_c = U.upsample_argmax(logits, (H, W))
         torch.cuda.synchronize()
 
         differ = maps_k != maps_p
         agree = 1.0 - differ.float().mean().item()
+        agree_c = 1.0 - (maps_c != maps_p).float().mean().item()
         n_differ_valid = int(differ[:count].sum())
         conf_err = float((conf_k - conf_p).abs().max())
         conf_l1 = float((conf_k - conf_p).abs().sum())
         ent_err = float((ent_k - ent_p).abs().max())
         ent_rel = float(((ent_k - ent_p).abs() / ent_p.abs()).max())
         print(f"[kernel-vs-plain] {tag}: N={N} {h}x{w}->{H}x{W} C={C} count={count}: "
-              f"argmax agree {agree:.7f}, differing pixels {int(differ.sum())}; "
+              f"argmax agree {agree:.7f} (B), {agree_c:.7f} (C), differing pixels "
+              f"{int(differ.sum())} (B), {int((maps_c != maps_p).sum())} (C); "
               f"confusion sum|d| {conf_l1:g} (max {conf_err:g}); entropy max|d| {ent_err:.3g} "
               f"(rel {ent_rel:.3g})")
         check(agree >= TOL_MAP_AGREE, f"{tag}: argmax maps agree on {agree:.7f} < {TOL_MAP_AGREE}")
+        check(agree_c >= TOL_MAP_AGREE,
+              f"{tag}: kernel C's maps agree on {agree_c:.7f} < {TOL_MAP_AGREE}")
         check(conf_l1 <= 3 * n_differ_valid,
               f"{tag}: confusion counts differ by {conf_l1} > 3 x {n_differ_valid} flipped pixels")
         check(ent_rel <= TOL_ENT_RTOL, f"{tag}: entropy rel err {ent_rel:.3g} > {TOL_ENT_RTOL}")
@@ -181,6 +213,9 @@ def kernel_vs_plain(U, torch):
              lambda: U.upsample_argmax_confusion_plain(logits, labels, count, (H, W)), conf_err),
             ("B", lambda: U.upsample_entropy_argmax(logits, (H, W)),
              lambda: U.upsample_entropy_argmax_plain(logits, (H, W)), ent_err),
+            ("C", lambda: U.upsample_argmax(logits, (H, W)),
+             lambda: U.upsample_argmax_plain(logits, (H, W)),
+             float((maps_c - maps_p).abs().max())),
         ):
             results[key] = dict(ms=median_ms(fn), plain_ms=median_ms(plain), library_ms=lib_ms,
                                 bound_ms=bounds[key][0], bound_by=bounds[key][1],
@@ -309,13 +344,147 @@ def lovasz_kernel_vs_plain(S, torch):
     torch.cuda.empty_cache()
 
 
+def hist_rows(R, P, g, torch):
+    """(R, P) Lovász-like errors in [0, 1.5) with 15 % of them void (-1e30),
+    a bool foreground of ~30 % of the valid pixels, and the valid mask."""
+    errors = 1.5 * torch.rand(R, P, device="cuda", generator=g)
+    valid = torch.rand(R, P, device="cuda", generator=g) >= 0.15
+    errors = torch.where(valid, errors, -1e30)
+    fg = (torch.rand(R, P, device="cuda", generator=g) < 0.3) & valid
+    return errors, fg, valid
+
+
+def hist_vs_plain(Hk, torch):
+    """Phase 3c.  Kernels E and F against their plain versions at every
+    case; returns their measurements at the two flagship -G row shapes."""
+    from ee_semantic_segmentation_tpu_torch.ops.lovasz import _hist_prepass, _hist_tables
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    P_ragged, max_bins = 2 * 67 * 101, Hk.max_kernel_bins()
+    cases = {  # tag: (rows, P, bins)
+        SORT_MAIN_SHAPE: (63, 1 << 22, HIST_BINS),
+        SORT_PER_IMAGE_SHAPE: (1008, 1 << 18, HIST_BINS),
+        "ragged 8x(2*67*101), 128 bins": (8, P_ragged, 128),
+        f"ragged 8x(2*67*101), {max_bins} bins": (8, P_ragged, max_bins),
+        "4x2^20 with an all-void and an all-tied row": (4, 1 << 20, HIST_BINS),
+    }
+    results = {}
+    for tag, (R, P, bins) in cases.items():
+        errors, fg, valid = hist_rows(R, P, g, torch)
+        if R == 4:
+            errors[1], fg[1], valid[1] = -1e30, False, False  # all void
+            errors[2], valid[2] = 0.25, True  # all tied (one bucket; sums exact)
+            fg[2] = torch.rand(P, device="cuda", generator=g) < 0.5
+        emax, inv_w = _hist_prepass(errors, valid, bins)
+        hk = Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins)
+        hp = Hk.hist2d_weighted_plain(errors, fg, emax, inv_w, bins=bins)
+        _, tables = _hist_tables(hk)
+        tables = tables.contiguous()
+        wk = Hk.table_lookup(errors, fg, emax, inv_w, tables, bins=bins)
+        wp = Hk.table_lookup_plain(errors, fg, emax, inv_w, tables, bins=bins)
+        torch.cuda.synchronize()
+        counts_equal = bool(torch.equal(hk[:, :2], hp[:, :2]))
+        d_sum = (hk[:, 2:] - hp[:, 2:]).abs()
+        sum_rel = float((d_sum / hp[:, 2:].abs().clamp_min(1e-30)).max())
+        sum_err = float(d_sum.max())
+        lookup_equal = bool(torch.equal(wk.view(torch.int32), wp.view(torch.int32)))
+        print(f"[hist-vs-plain] {tag}: counts equal {counts_equal} (total {int(hk[:, 0].sum())}"
+              f" of {R * P} pixels valid), error sums max|d| {sum_err:.3g} (rel {sum_rel:.3g}); "
+              f"lookup equal bit for bit {lookup_equal}")
+        check(counts_equal, f"hist {tag}: E's counts differ from the plain version's")
+        check(bool(((hk[:, 2:] == hp[:, 2:]) | (d_sum <= TOL_HIST_SUM_RTOL * hp[:, 2:].abs())).all()),
+              f"hist {tag}: E's error sums differ by rel {sum_rel:.3g} > {TOL_HIST_SUM_RTOL}")
+        check(lookup_equal, f"hist {tag}: F's output differs from the plain version's")
+        if R == 4:
+            check(not hk[1].any() and not wk[1].any(), "the all-void row is not all zero")
+            check(int(hk[2, 0, 0]) == P and not hk[2, 0, 1:].any(),
+                  "the all-tied row is not in one bucket")
+        if tag.startswith("flagship"):
+            idx = ((emax[:, None] - errors) * inv_w[:, None]).clamp(0, bins - 1).long()
+            fgv = fg & valid
+            idx4 = (idx[:, None, :] + bins * torch.arange(4, device="cuda")[None, :, None])
+            idx4 = idx4.reshape(R, 4 * P)
+            src4 = torch.stack([valid.float(), fgv.float(), errors * valid, errors * fgv], 1)
+            src4 = src4.reshape(R, 4 * P)
+            idx2 = idx + bins * (~fg).long()
+            tab2 = tables.view(R, 2 * bins)
+            e_bytes = R * P * 5 + R * 8 + R * 4 * bins * 4
+            f_bytes = R * P * 9 + R * 8 + R * 2 * bins * 4
+            # operations per pixel: E compares, subtracts, multiplies, clamps
+            # twice, converts and adds to two or four buckets (8); F does the
+            # same bucket id and a select and a multiply (7)
+            for key, fn, plain, lib, nbytes, ops, err in (
+                ("E", lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins),
+                 lambda: Hk.hist2d_weighted_plain(errors, fg, emax, inv_w, bins=bins),
+                 lambda: torch.zeros(R, 4 * bins, device="cuda").scatter_add_(1, idx4, src4),
+                 e_bytes, 8 * R * P, sum_err),
+                ("F", lambda: Hk.table_lookup(errors, fg, emax, inv_w, tables, bins=bins),
+                 lambda: Hk.table_lookup_plain(errors, fg, emax, inv_w, tables, bins=bins),
+                 lambda: torch.gather(tab2, 1, idx2), f_bytes, 7 * R * P,
+                 float((wk - wp).abs().max())),
+            ):
+                bound_ms, bound_by = bound(nbytes, ops)
+                r = results[key, tag] = dict(
+                    ms=median_ms(fn), plain_ms=median_ms(plain), library_ms=median_ms(lib),
+                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                print(f"[hist-vs-plain] {key} at {tag}, {bins} bins: kernel {r['ms']:.3f} ms, "
+                      f"plain {r['plain_ms']:.3f} ms, library "
+                      f"({'scatter_add_' if key == 'E' else 'gather'} over precomputed bucket "
+                      f"ids) {r['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            del idx, fgv, idx4, src4, idx2, tab2
+        del errors, fg, valid, hk, hp, wk, wp, tables
+        torch.cuda.empty_cache()
+    errors, fg, valid = hist_rows(2, 1000, g, torch)
+    try:
+        Hk.hist2d_weighted(errors, fg, *_hist_prepass(errors, valid, 2 * max_bins), bins=2 * max_bins)
+    except ValueError as err:
+        print(f"[hist-vs-plain] {2 * max_bins} bins raise: {err}")
+    else:
+        check(False, f"hist2d_weighted took {2 * max_bins} bins, above its limit {max_bins}")
+    return results
+
+
+def hist_lovasz_kernel_vs_plain(Hk, torch):
+    """Phase 3c, end: the -G 1024 multi-exit Lovász value and gradient with
+    kernels E and F against the same function with their plain versions,
+    on flagship-shaped logits with 15 % void labels, per-batch and
+    per-image.  The gradient depends on the exact counts only: equal."""
+    from ee_semantic_segmentation_tpu_torch.ops.lovasz import _lovasz_exits
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    logits = 3 * torch.randn(3, 16, 512, 512, C, device="cuda", generator=g)
+    labels = torch.randint(0, C, (16, 512, 512), device="cuda", generator=g, dtype=torch.int32)
+    labels[torch.rand(16, 512, 512, device="cuda", generator=g) < 0.15] = C  # void
+    for per_image in (False, True):
+        out = {}
+        for name, pair in (("kernel", Hk.KERNELS),
+                           ("plain", (Hk.hist2d_weighted_plain, Hk.table_lookup_plain))):
+            x = logits.clone().requires_grad_(True)
+            loss = _lovasz_exits(x, labels, per_image=per_image, ignore=C, hist_bins=HIST_BINS,
+                                 hist_kernels=pair).sum()
+            (grad,) = torch.autograd.grad(loss, x)
+            out[name] = (loss.item(), grad)
+        (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+        print(f"[hist-lovasz] -G {HIST_BINS} on flagship logits (3, 16, 512, 512, {C}), "
+              f"per_image={per_image}: loss kernel {lk!r} vs plain {lp!r} (rel "
+              f"{abs(lk - lp) / abs(lp):.3g}); gradient equal {bool(torch.equal(gk, gp))}, "
+              f"max|grad| {float(gp.abs().max()):.3g}")
+        check(math.isfinite(lk) and abs(lk - lp) <= TOL_HIST_LOVASZ_RTOL * abs(lp),
+              f"-G Lovász loss with the kernels {lk} vs the plain versions {lp}")
+        check(bool(torch.equal(gk, gp)), "-G Lovász gradient with the kernels differs from the "
+              f"plain versions' by max {float((gk - gp).abs().max()):.3g}")
+        del out, gk, gp
+    del logits, labels
+    torch.cuda.empty_cache()
+
+
 TR_SCHEMA = ["train_loss", "val_mIoU_b1_mIoU", "val_mIoU_b2_mIoU", "val_mIoU_mIoU", "lr"]
 
 
-def training_path(S, kernels, torch):
+def training_path(S, Hk, kernels, torch):
     """Phase 4b.  Trains the flagship through the CLIs, each run with every
     kernel's count set to 0 just before it; returns the sort's launches on
-    the default (per-batch Lovász) run."""
+    the default (per-batch Lovász) run and E's and F's on the -G run."""
     from ee_semantic_segmentation_tpu_torch.cli import eval_miou, main_bradeepv3, main_bradeepv3_ce
     from ee_semantic_segmentation_tpu_torch.train.checkpoint import load_config
 
@@ -323,6 +492,7 @@ def training_path(S, kernels, torch):
     base = ["-t", "resnet50", "-n", "2", "-D", "512", "-b", str(bs), "-e", "1", "-d", "synthetic",
             "-l", "0.01", "--accum_steps", str(TRAIN_ACCUM)]
     runs = (("lovasz", main_bradeepv3, []), ("lovasz_per_image", main_bradeepv3, ["-P"]),
+            ("hist_lovasz", main_bradeepv3, ["-G", str(HIST_BINS)]),
             ("ce", main_bradeepv3_ce, []))
     launches = {}
     cwd = os.getcwd()
@@ -341,11 +511,16 @@ def training_path(S, kernels, torch):
                 print(f"[train-path] {cli.__name__.rsplit('.', 1)[1]} {' '.join(extra)}: "
                       f"{wall:.2f} s wall (build + 1 epoch + validation + test), launches {counts}, "
                       f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-                want = 2 * steps * TRAIN_ACCUM if name.startswith("lovasz") else 0
-                check(S.sort_rows.launches == want,
-                      f"{name}: sort_rows launched {S.sort_rows.launches} times, want {want}")
+                want = {S.sort_rows: 2 * steps * TRAIN_ACCUM if name.startswith("lovasz") else 0}
+                for k in Hk.KERNELS:
+                    want[k] = steps * TRAIN_ACCUM if name == "hist_lovasz" else 0
+                for k, n in want.items():
+                    check(k.launches == n, f"{name}: {k.__name__} launched {k.launches} times, "
+                                           f"want {n}")
                 if name == "lovasz":
                     launches[S.sort_rows.__name__] = S.sort_rows.launches
+                if name == "hist_lovasz":
+                    launches.update({k.__name__: k.launches for k in Hk.KERNELS})
                 cfg = load_config(ckpt)
                 check(cfg.segment_ends == (12, 15) and cfg.n_exits == 3,
                       f"{name}: trained model is not the flagship: {cfg}")
@@ -370,10 +545,11 @@ def training_path(S, kernels, torch):
     return launches
 
 
-def training_throughput(S, sort_ms, torch):
+def training_throughput(loss_kernel_ms, torch):
     """Phase 4b, end: train-step images/s of the flagship over pre-loaded
     batches (the first step warms up; 4 more timed with CUDA events), and
-    the share of a step that two sort calls take."""
+    the share of a step that the loss's kernels take (two sorts, or one E
+    and one F), from their phase-3b/3c times at the step's row shape."""
     from ee_semantic_segmentation_tpu_torch.cli.common import resolve_test_set
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
@@ -389,13 +565,16 @@ def training_throughput(S, sort_ms, torch):
     batches = [tuple(torch.from_numpy(b[k]).cuda() for k in ("image", "label"))
                for b in DataLoader(resolve_test_set("synthetic", 512), bs)]
     losses = {
-        "lovasz": (LovaszSoftmax(ignore=C, n_branches=2), sort_ms[SORT_MAIN_SHAPE]),
-        "lovasz_per_image": (LovaszSoftmax(ignore=C, n_branches=2, per_image=True),
-                             sort_ms[SORT_PER_IMAGE_SHAPE]),
-        "ce": (BrXEntropyLoss(ignore_index=C, b_reduction="sum", n_exits=3), 0.0),
+        "lovasz": LovaszSoftmax(ignore=C, n_branches=2),
+        "lovasz_per_image": LovaszSoftmax(ignore=C, n_branches=2, per_image=True),
+        "hist_lovasz": LovaszSoftmax(ignore=C, n_branches=2, hist_bins=HIST_BINS),
+        "hist_lovasz_per_image": LovaszSoftmax(ignore=C, n_branches=2, per_image=True,
+                                               hist_bins=HIST_BINS),
+        "ce": BrXEntropyLoss(ignore_index=C, b_reduction="sum", n_exits=3),
     }
     ips, share = {}, {}
-    for name, (loss_fn, one_sort_ms) in losses.items():
+    for name, loss_fn in losses.items():
+        kernel_ms = loss_kernel_ms.get(name, 0.0)
         torch.manual_seed(0)
         model = build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
         model = model.cuda().to(memory_format=torch.channels_last)
@@ -414,10 +593,10 @@ def training_throughput(S, sort_ms, torch):
             times.append(start.elapsed_time(end))
         step_ms = statistics.mean(times)
         ips[f"train {name}"] = bs / (step_ms / 1e3)
-        share[name] = 2 * one_sort_ms / step_ms
+        share[name] = kernel_ms / step_ms
         print(f"[train-throughput] {name}: step {step_ms:.1f} ms (steps {[round(t, 1) for t in times]}), "
-              f"{ips[f'train {name}']:.2f} images/s at 512x512 batch {bs}; two sorts "
-              f"{2 * one_sort_ms:.1f} ms = {100 * share[name]:.1f} % of a step")
+              f"{ips[f'train {name}']:.2f} images/s at 512x512 batch {bs}; the loss's kernels "
+              f"{kernel_ms:.2f} ms = {100 * share[name]:.1f} % of a step")
         del model, opt, step, loss
         torch.cuda.empty_cache()
     return ips, share
@@ -435,20 +614,41 @@ def as_float(v: str) -> float:
 MIOU_SCHEMA = ["net_id", "b1_mIoU", "b2_mIoU", "mIoU"]
 ENT_SCHEMA = ["net_id", "b1_mIoU", "b1_count", "b2_mIoU", "b2_count", "mIoU_out",
               "count_out", "mIoU_gl", "out_gl", "t", "pool", "pool_size"]
+SIM_SCHEMA = ENT_SCHEMA[:-2] + ["metric"]
+
+
+def check_same_row(what, a_row, b_row):
+    """Two evaluator results (dicts of CSV cells or of values): counts and
+    strings equal, mIoU within TOL_MIOU_ABS (or NaN on both sides)."""
+    for col, a in a_row.items():
+        b = b_row[col]
+        if col.endswith("count") or col in ("count_out", "out_gl", "net_id", "metric", "pool"):
+            check(str(a) == str(b), f"{what} {col}: {a} vs {b}")
+        else:
+            a, b = (as_float(v) if isinstance(v, str) else v for v in (a, b))
+            check((math.isnan(a) and math.isnan(b)) or abs(a - b) <= TOL_MIOU_ABS,
+                  f"{what} {col}: {a} vs {b}")
 
 
 def main_path(U, torch):
     """Phase 4.  Returns each kernel's launches on its main-path run and the
     evaluators' images/s."""
-    from ee_semantic_segmentation_tpu_torch.cli import eval_br_ent, eval_miou
+    from ee_semantic_segmentation_tpu_torch.cli import (
+        eval_br_ent,
+        eval_br_images,
+        eval_br_sim,
+        eval_miou,
+    )
     from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.ee.batch_eval import (
         br_evaluator_entropy_fused,
+        br_evaluator_similarity_fused,
         make_kernel_miou_step_fn,
         mIoU_evaluator_fused,
     )
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
+    from ee_semantic_segmentation_tpu_torch.ops.gating import batched_similarity
     from ee_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
     torch.manual_seed(0)
@@ -467,8 +667,11 @@ def main_path(U, torch):
             for key, kernel, cli, extra in (
                 ("miou", U.upsample_argmax_confusion, eval_miou, []),
                 ("ent", U.upsample_entropy_argmax, eval_br_ent, ["-t", str(tau)]),
+                ("sim_ssim", U.upsample_argmax, eval_br_sim, ["-m", "ssim", "-t", str(tau)]),
+                ("sim_nmi", U.upsample_argmax, eval_br_sim, ["-m", "nmi", "-t", str(tau)]),
+                ("images_nmi", None, eval_br_images, ["-m", "nmi", "-t", str(tau)]),
             ):
-                for head in ("kernel", "plain"):
+                for head in ("kernel", "plain") if kernel else ("plain",):
                     for k in U.KERNELS:
                         k.launches = 0
                     t0 = time.perf_counter()
@@ -500,6 +703,10 @@ def main_path(U, torch):
                     model, 3, C, batches, tau, pallas_head=True),
                 "eval_br_ent plain head": lambda: br_evaluator_entropy_fused(
                     model, 3, C, batches, tau),
+                "eval_br_sim kernel head": lambda: br_evaluator_similarity_fused(
+                    model, 3, C, batches, "ssim", tau, ignore=(C - 1,), pallas_head=True),
+                "eval_br_sim plain head": lambda: br_evaluator_similarity_fused(
+                    model, 3, C, batches, "ssim", tau, ignore=(C - 1,)),
             }
             for name, fn in runs.items():
                 fn()  # warm-up (cuDNN algorithm choice, allocator)
@@ -528,42 +735,68 @@ def main_path(U, torch):
             print(f"[main-path] first-exit entropies {[round(e, 6) for e in ent1]}; "
                   f"tau {tau_split:.6f}: kernel head {split_k}, plain head {split_p}")
             check(split_k["b1_count"] == i + 1, f"tau split: b1_count {split_k['b1_count']} != {i + 1}")
-            for col, a in split_k.items():
-                b = split_p[col]
-                check(a == b if isinstance(a, (int, str)) else
-                      (math.isnan(a) and math.isnan(b)) or abs(a - b) <= TOL_MIOU_ABS,
-                      f"tau split {col}: kernel head {a} vs plain head {b}")
+            check_same_row("tau split, kernel head vs plain head:", split_k, split_p)
+
+            # the same for the similarity gate: a tau in the widest gap
+            # between the exit-0/exit-1 similarities sends the images above
+            # it to exit 2 (b2); exit 1 (b1) is never a gate position with
+            # two branches
+            for metric in ("ssim", "nmi"):
+                with torch.inference_mode():
+                    sims = torch.cat([
+                        batched_similarity(torch.stack([
+                            U.upsample_argmax(l, (512, 512))
+                            for l in model.lowres_logits(torch.from_numpy(b["image"]).cuda())[:2]
+                        ]), metric, C, (C - 1,))[0, :b["count"]]
+                        for b in batches]).sort().values.tolist()
+                gap, i = max((sims[j + 1] - sims[j], j) for j in range(len(sims) - 1))
+                check(gap > 1e-5, f"exit-0/exit-1 {metric} too close to split: {sims}")
+                tau_split = (sims[i] + sims[i + 1]) / 2
+                split_k = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
+                                                        ignore=(C - 1,), pallas_head=True)
+                split_p = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
+                                                        ignore=(C - 1,))
+                print(f"[main-path] exit-0/exit-1 {metric} {[round(v, 6) for v in sims]}; "
+                      f"tau {tau_split:.6f}: kernel head {split_k}, plain head {split_p}")
+                want_b2 = len(sims) - (i + 1)
+                check(split_k["b1_count"] == 0 and split_k["b2_count"] == want_b2,
+                      f"{metric} tau split: b1_count {split_k['b1_count']}, b2_count "
+                      f"{split_k['b2_count']} (want 0 and {want_b2})")
+                check_same_row(f"{metric} tau split, kernel head vs plain head:", split_k, split_p)
         finally:
             os.chdir(cwd)
 
-    for key, schema in (("miou", MIOU_SCHEMA), ("ent", ENT_SCHEMA)):
-        for head in ("kernel", "plain"):
-            check(list(rows[key, head][0]) == schema,
-                  f"{key} {head} CSV schema {list(rows[key, head][0])} != {schema}")
+    for (key, head), row in rows.items():
+        schema = {"miou": MIOU_SCHEMA, "ent": ENT_SCHEMA}.get(key, SIM_SCHEMA)
+        check(list(row[0]) == schema, f"{key} {head} CSV schema {list(row[0])} != {schema}")
     for col in ("b1_mIoU", "b2_mIoU", "mIoU"):
         a, b = as_float(rows["miou", "kernel"][0][col]), as_float(rows["miou", "plain"][0][col])
         print(f"[main-path] eval_miou {col}: kernel head {a!r}, plain head {b!r}")
         check((math.isnan(a) and math.isnan(b)) or abs(a - b) <= TOL_MIOU_ABS,
               f"eval_miou {col}: kernel head {a} vs plain head {b}")
-    gk, gp = rows["ent", "kernel"][0], rows["ent", "plain"][0]
-    print(f"[main-path] eval_br_ent kernel head row {dict(gk)}")
-    print(f"[main-path] eval_br_ent plain head row  {dict(gp)}")
-    for g in (gk, gp):
-        exits = int(g["b1_count"]) + int(g["b2_count"]) + int(g["count_out"])
-        check(exits == n_img and int(g["out_gl"]) == n_img,
-              f"exit counts sum to {exits} (out_gl {g['out_gl']}), want {n_img}")
-    for col in ("b1_count", "b2_count", "count_out", "out_gl"):
-        check(gk[col] == gp[col], f"eval_br_ent {col}: kernel head {gk[col]} vs plain head {gp[col]}")
-    for col in ("b1_mIoU", "b2_mIoU", "mIoU_out", "mIoU_gl"):
-        a, b = as_float(gk[col]), as_float(gp[col])
-        check((math.isnan(a) and math.isnan(b)) or abs(a - b) <= TOL_MIOU_ABS,
-              f"eval_br_ent {col}: kernel head {a} vs plain head {b}")
+    for key in ("ent", "sim_ssim", "sim_nmi", "images_nmi"):
+        for head in ("kernel", "plain"):
+            if (key, head) not in rows:
+                continue
+            g = rows[key, head][0]
+            print(f"[main-path] {key} {head} head row {dict(g)}")
+            exits = int(g["b1_count"]) + int(g["b2_count"]) + int(g["count_out"])
+            check(exits == n_img and int(g["out_gl"]) == n_img,
+                  f"{key}: exit counts sum to {exits} (out_gl {g['out_gl']}), want {n_img}")
+        if (key, "kernel") in rows:
+            check_same_row(f"{key}, kernel head vs plain head:", rows[key, "kernel"][0],
+                           rows[key, "plain"][0])
     return launches, ips
 
 
 KERNEL_INFO = (
     ("A", "upsample_argmax_confusion", "ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:441"),
     ("B", "upsample_entropy_argmax", "ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:284"),
+    ("C", "upsample_argmax", "ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:131"),
+)
+HIST_INFO = (
+    ("E", "hist2d_weighted", "ee_semantic_segmentation_tpu/ops/pallas/hist_kernel.py:135"),
+    ("F", "table_lookup", "ee_semantic_segmentation_tpu/ops/pallas/hist_kernel.py:175"),
 )
 
 
@@ -581,6 +814,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import hist as Hk
     from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as S
     from ee_semantic_segmentation_tpu_torch.ops.kernels import upsample_argmax as U
 
@@ -609,6 +843,10 @@ def main() -> int:
     # --------------------------------------------------------------- phase 3b
     sort_measured = sort_vs_plain(S, torch)
     lovasz_kernel_vs_plain(S, torch)
+
+    # --------------------------------------------------------------- phase 3c
+    hist_measured = hist_vs_plain(Hk, torch)
+    hist_lovasz_kernel_vs_plain(Hk, torch)
     # the main paths run with PyTorch's defaults, as a user's CLI call does
     torch.backends.cudnn.allow_tf32 = True
 
@@ -616,9 +854,14 @@ def main() -> int:
     launches, ips = main_path(U, torch)
 
     # --------------------------------------------------------------- phase 4b
-    launches.update(training_path(S, U.KERNELS + S.KERNELS, torch))
-    train_ips, sort_share = training_throughput(
-        S, {tag: m["ms"] for tag, m in sort_measured.items()}, torch)
+    launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
+    loss_kernel_ms = {
+        "lovasz": 2 * sort_measured[SORT_MAIN_SHAPE]["ms"],
+        "lovasz_per_image": 2 * sort_measured[SORT_PER_IMAGE_SHAPE]["ms"],
+        "hist_lovasz": sum(hist_measured[k, SORT_MAIN_SHAPE]["ms"] for k in "EF"),
+        "hist_lovasz_per_image": sum(hist_measured[k, SORT_PER_IMAGE_SHAPE]["ms"] for k in "EF"),
+    }
+    train_ips, kernel_share = training_throughput(loss_kernel_ms, torch)
 
     # ---------------------------------------------------------------- phase 5
     kernels = []
@@ -646,8 +889,21 @@ def main() -> int:
             "per_image_shape": {k: v for k, v in sort_measured[SORT_PER_IMAGE_SHAPE].items()
                                 if k.endswith("ms")},
         })
+    for key, name, replaces in HIST_INFO:
+        m = hist_measured[key, SORT_MAIN_SHAPE]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/ops/kernels/csrc/hist_lovasz.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "kernel_ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shape": f"{SORT_MAIN_SHAPE}, {HIST_BINS} bins",
+            "per_image_shape": {k: v for k, v in hist_measured[key, SORT_PER_IMAGE_SHAPE].items()
+                                if k.endswith("ms")},
+        })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
-                      "train_images_per_s": train_ips, "sort_share_of_train_step": sort_share}))
+                      "train_images_per_s": train_ips,
+                      "loss_kernel_share_of_train_step": kernel_share}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -10,9 +10,9 @@ ignore=void, n_branches)`` driving ``train/trainer.eval_deepv3``.  Run as
 
 Checkpoints land in ``./<dataset>_results/<Name>/<Name>{.pt,.opt.pt,.json}``,
 progress in ``./<dataset>_deepv3_msgs.txt``, the test row in
-``./mIoU_<n>_branches_results.csv``.  Not ported yet, and raising when
-asked for: ``-G`` (the histogram Lovász runs kernels E and F, ROADMAP.md
-queue B) and ``--sp > 1`` (spatial partitioning over several devices,
+``./mIoU_<n>_branches_results.csv``.  ``-G <bins>`` trains with the
+sort-free histogram Lovász (kernels E and F).  Not ported yet, and raising
+when asked for: ``--sp > 1`` (spatial partitioning over several devices,
 ROADMAP.md queue A item 6).
 """
 
@@ -52,7 +52,10 @@ def build_parser():
                    help="with -K: stay exact always — a step whose batch exceeds K "
                         "present classes takes the all-class Lovász")
     p.add_argument("-G", "--hist_bins", type=int, default=None,
-                   help="sort-free histogram Lovász (not ported yet: raises)")
+                   help="sort-free histogram Lovász with this many error buckets "
+                        "(128 * a power of two, e.g. 1024): the per-class sort becomes a "
+                        "histogram kernel. Approximate: per-class loss error is bounded "
+                        "by error_range/bins. Default: exact sorted Lovász")
     p.add_argument("-D", "--input_dim", type=int, nargs="+", default=[256],
                    help="square side, or H W for non-square (e.g. -D 512 1024)")
     p.add_argument("-b", "--batch_size", type=int, default=32)
@@ -81,10 +84,6 @@ def resolve_input_dim(dims):
 
 def check_ported(args) -> None:
     """Raise for the options whose code paths are not ported yet."""
-    from ee_semantic_segmentation_tpu_torch.ops.lovasz import HIST_BINS_TODO
-
-    if args.hist_bins is not None:
-        raise NotImplementedError(f"-G: {HIST_BINS_TODO}")
     if args.sp > 1:
         raise NotImplementedError(
             "--sp > 1: spatial partitioning over several devices is not ported yet "
@@ -161,6 +160,7 @@ def main(argv=None):
         per_image=args.per_image_loss and not args.batch_loss,
         max_present=args.max_present,
         exact_fallback=args.exact_compaction,
+        hist_bins=args.hist_bins,
     )
     info = make_dts_info(args, loss)
     ret = eval_deepv3(info)

@@ -1,19 +1,21 @@
-"""Batched full-forward evaluators: per-exit mIoU and the entropy-gated policy.
+"""Batched full-forward evaluators: per-exit mIoU and the entropy- and
+similarity-gated policies.
 
 Port of the serving half of ``ee_semantic_segmentation_tpu/ee/batch_eval.py``:
 
 * ONE forward per batch computes all exits;
-* the entropy gate is computed for all exits at once, and the exit choice
-  is the first exit whose gate fires, else the final head;
+* the gate (an exit's entropy, or the similarity of consecutive exits'
+  label maps) is computed for all exits at once, and the exit choice is the
+  first exit whose gate fires, else the final head;
 * per-exit confusion counts are reduced on the device and only (E, 3, C)
-  tensors come back to the host per batch.
+  tensors (or, per image, (N,) scores) come back to the host per batch.
 
-Two heads compute the counts.  The plain head runs the full forward
-(``F.interpolate`` upsample), argmax and a bincount.  The kernel head runs
-``lowres_logits`` and hands each exit's low-res logits to the fused CUDA
-upsample kernels (``ops/kernels/upsample_argmax.py``), so no (N, H, W, C)
-upsampled tensor exists.  On CPU tensors the kernel wrappers take their
-plain versions.
+Two heads compute the label maps or counts.  The plain head runs the full
+forward (``F.interpolate`` upsample), argmax and a bincount.  The kernel
+head runs ``lowres_logits`` and hands each exit's low-res logits to the
+fused CUDA upsample kernels (``ops/kernels/upsample_argmax.py``), so no
+(N, H, W, C) upsampled tensor exists.  On CPU tensors the kernel wrappers
+take their plain versions.
 
 Batches carry a ``count`` of valid rows (the loader pads the last batch);
 padded rows are masked out of every count.  Everything runs under
@@ -27,12 +29,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ee_semantic_segmentation_tpu_torch.ops.gating import batched_norm_entropy
+from ee_semantic_segmentation_tpu_torch.ops.gating import (
+    SIM_GREATER,
+    batched_norm_entropy,
+    batched_similarity,
+)
 from ee_semantic_segmentation_tpu_torch.ops.kernels.upsample_argmax import (
+    upsample_argmax,
     upsample_argmax_confusion,
     upsample_entropy_argmax,
 )
-from ee_semantic_segmentation_tpu_torch.ops.metrics import confusion_counts, confusion_update, mIoU
+from ee_semantic_segmentation_tpu_torch.ops.metrics import (
+    _img_miou_one,
+    confusion_counts,
+    confusion_update,
+    img_mIoU,
+    mIoU,
+)
 
 
 def _device_of(model) -> torch.device:
@@ -189,3 +202,98 @@ def br_evaluator_entropy_fused(
             counts[-1] += count
 
     return _finalize_gated(accs, counts, n_branches, tau, {"pool": metric, "pool_size": size})
+
+
+def _similarity_exits(preds, metric: str, tau: float, n_classes: int, ignore, skip: int):
+    """(E, N, H, W) exit label maps -> (N,) chosen exit: the first gate
+    position i in [1 + skip, n_branches) whose maps i - 1 and i are similar
+    enough (sim > tau for ssim and nmi, sim < tau otherwise), else the final
+    head (eval_br_sim.py:41-48).  With one branch or none there is no pair
+    to gate on and every image takes the final head."""
+    n_branches, N = preds.shape[0] - 1, preds.shape[1]
+    exit_idx = torch.full((N,), n_branches, dtype=torch.long, device=preds.device)
+    if n_branches <= 1:
+        return exit_idx
+    # only the pairs (i - 1, i) with i < n_branches are gates
+    sims = batched_similarity(preds[:n_branches], metric, n_classes, ignore)
+    fires = (sims > tau) if metric.lower() in SIM_GREATER else (sims < tau)
+    fires[:skip] = False  # gate position i = row i - 1; i < 1 + skip never fires
+    first = fires.to(torch.uint8).argmax(dim=0) + 1
+    return torch.where(fires.any(dim=0), first, exit_idx)
+
+
+def _exit_maps(model, images, pallas_head: bool):
+    """(E, N, H, W) label maps of every exit: kernel C on each exit's low-res
+    logits, or the plain head's full forward and argmax."""
+    if pallas_head:
+        out_hw = tuple(images.shape[1:3])
+        return torch.stack([upsample_argmax(l, out_hw) for l in model.lowres_logits(images)])
+    return model(images).argmax(dim=-1)
+
+
+def br_evaluator_similarity_fused(
+    model, n_exits, n_classes, loader, metric, tau, *, ignore=(), skip=0,
+    pallas_head: bool = False,
+):
+    """Similarity-gated policy simulation (eval_br_sim.py:16-65 equivalent)
+    with confusion-matrix accumulators.
+
+    Exit at the first branch i >= 1 + skip whose label map is similar enough
+    to the previous exit's.  The gates read only label maps, so
+    ``pallas_head=True`` computes each exit's map with the fused CUDA
+    upsample + argmax kernel ``upsample_argmax`` from the low-res logits.
+    """
+    n_branches = n_exits - 1
+    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
+    counts = np.zeros(n_exits + 1, np.int64)
+    device = _device_of(model)
+    model.eval()
+    with torch.inference_mode():
+        for batch in loader:
+            count = int(batch.get("count", len(batch["image"])))
+            images, labels = _to_device(batch, device)
+            preds = _exit_maps(model, images, pallas_head)
+            exit_idx = _similarity_exits(preds, metric, tau, n_classes, ignore, skip)
+            valid = torch.arange(images.shape[0], device=device) < count
+            bucketed, chosen_conf = _bucketed_confusion_masked(
+                preds, labels, exit_idx, valid, num_classes=n_classes)
+            bucketed = bucketed.double().cpu().numpy()
+            for e in range(n_exits):
+                accs[e].accumulator += bucketed[e]
+            accs[-1].accumulator += chosen_conf.double().cpu().numpy()
+            counts[:n_exits] += np.bincount(exit_idx[:count].cpu().numpy(), minlength=n_exits)
+            counts[-1] += count
+    return _finalize_gated(accs, counts, n_branches, tau, {"metric": metric})
+
+
+def br_evaluator_similarity(
+    model, n_exits, n_classes, loader, metric, tau, *, ignore=(), skip=0,
+    image_level: bool = False,
+):
+    """The similarity-gated policy with the plain head;
+    ``image_level=True`` mirrors eval_br_images.py: per-image mIoU
+    accumulators (``img_mIoU`` over ``n_classes + 1`` classes, the void id
+    included) instead of confusion matrices.  Each image's score is that of
+    the exit it takes; only (N,) scores and exit indices reach the host."""
+    if not image_level:
+        return br_evaluator_similarity_fused(model, n_exits, n_classes, loader, metric, tau,
+                                             ignore=ignore, skip=skip)
+    n_branches = n_exits - 1
+    accs = [img_mIoU(num_classes=n_classes + 1) for _ in range(n_exits + 1)]
+    counts = np.zeros(n_exits + 1, np.int64)
+    device = _device_of(model)
+    model.eval()
+    with torch.inference_mode():
+        for batch in loader:
+            count = int(batch.get("count", len(batch["image"])))
+            images, labels = _to_device(batch, device)
+            preds = _exit_maps(model, images, pallas_head=False)[:, :count]
+            exit_idx = _similarity_exits(preds, metric, tau, n_classes, ignore, skip)
+            chosen = preds[exit_idx, torch.arange(count, device=device)]
+            scores = _img_miou_one(chosen.flatten(1), labels[:count].flatten(1), n_classes + 1)
+            for e, score in zip(exit_idx.tolist(), scores.tolist()):
+                accs[e].add_score(score)
+                accs[-1].add_score(score)
+                counts[e] += 1
+            counts[-1] += count
+    return _finalize_gated(accs, counts, n_branches, tau, {"metric": metric})

@@ -5,8 +5,9 @@ Port of ``LovaszSoftmax`` from ``ee_semantic_segmentation_tpu/ops/branchy.py``
 ``(E, N, H, W, C)`` stacked logits, or their dot with
 ``linspace(0, 1, n_exits + 1)[1:]`` when ``prev_out`` is set.  All exits go
 through one call of ``ops/lovasz._lovasz_exits``, so a step sorts once
-forward and once backward.  The other multi-exit losses of that module are
-a ROADMAP.md item.
+forward and once backward (with ``hist_bins``: one histogram forward, one
+table lookup backward).  The other multi-exit losses of that module are a
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ class LovaszSoftmax:
     has more than K present classes the step takes the all-class loss.  The
     JAX package decides that with a ``lax.cond`` inside the compiled step;
     here it is a Python ``if`` on one count read to the host per step.
-    ``hist_bins`` (the sort-free approximation) raises: its kernels are not
-    ported yet.
+    ``hist_bins``: the sort-free histogram approximation with this many
+    error buckets (``ops/lovasz.py``); None is the exact sorted loss.
     """
 
     def __init__(self, classes="present", per_image=False, ignore=None, n_branches=0,

@@ -9,6 +9,10 @@
 //      upsample_entropy_argmax (_up_ent_argmax_kernel)
 //      -> up_ent_argmax_kernel + ent_finalize_kernel: the same upsample and
 //         argmax, plus each image's mean softmax entropy / log C.
+//   C  ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:
+//      upsample_argmax (_up_argmax_kernel)
+//      -> up_argmax_kernel: the same upsample and argmax, the (N, H, W)
+//         int32 label map only (the similarity gates read label maps).
 //
 // Design.  One thread per output pixel.  The separable resize
 // up_c = Wh @ X_c @ Ww^T has at most two nonzero taps per output row and
@@ -23,6 +27,7 @@
 //     atomicAdd per bin and block into an int32 (3, C) buffer: integer
 //     atomics make the counts exact and deterministic (f32 sums stop being
 //     exact above 2^24 pixels per class).
+//   C writes the label and nothing else.
 //   B keeps the C upsampled values in registers (C <= 32; larger C takes a
 //     second pass that recomputes them), takes m = max, z = sum e^(v-m),
 //     s = sum e^(v-m)(v-m) and the pixel entropy log z - s/z.  Each block
@@ -36,6 +41,8 @@
 //     Bound ~8 us.
 //   B reads 5.5 MB and writes 16.8 MB of label maps; 21 exp per pixel is
 //     88 M SFU operations, ~20 us: the SFU bounds it.
+//   C reads 5.5 MB and writes 16.8 MB of label maps: ~6.7 us of memory, the
+//     same ~6-8 us of FP32 as A.
 // The measured times sit beside these in PERF.md.  Making either fast
 // (staging the (C, h, w) block in shared memory, vectorised label loads) is
 // later work; this version is simple and right first.
@@ -105,6 +112,21 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// The first maximum of the C upsampled values (strict >, like jnp.argmax).
+template <typename T>
+__device__ __forceinline__ int taps_argmax(const PixelTaps<T>& taps, int C) {
+  float best = taps.value(0);
+  int pred = 0;
+  for (int k = 1; k < C; ++k) {
+    const float v = taps.value(k);
+    if (v > best) {
+      best = v;
+      pred = k;
+    }
+  }
+  return pred;
+}
+
 // Kernel A.  Grid: count * blocks_per_img blocks; block b covers pixels
 // [THREADS * (b % blocks_per_img), +THREADS) of image b / blocks_per_img.
 // Rows n >= count get no block at all.
@@ -124,15 +146,7 @@ __global__ void __launch_bounds__(THREADS) up_argmax_conf_kernel(
   if (p < HW) {
     const PixelTaps<T> taps = pixel_taps(logits + (size_t)n * h * w * C, p, w, C, W,
                                          row_idx, row_w, col_idx, col_w);
-    float best = taps.value(0);
-    int pred = 0;
-    for (int k = 1; k < C; ++k) {
-      const float v = taps.value(k);
-      if (v > best) {
-        best = v;
-        pred = k;
-      }
-    }
+    const int pred = taps_argmax(taps, C);
     const int lab = labels[(size_t)n * HW + p];
     if (lab == pred) {
       atomicAdd(&hist[pred], 1);                          // TP
@@ -144,6 +158,22 @@ __global__ void __launch_bounds__(THREADS) up_argmax_conf_kernel(
   __syncthreads();
   for (int i = threadIdx.x; i < 3 * C; i += THREADS)
     if (hist[i]) atomicAdd(&counts[i], hist[i]);
+}
+
+// Kernel C.  Same grid layout as A over all N rows.
+template <typename T>
+__global__ void __launch_bounds__(THREADS) up_argmax_kernel(
+    const T* __restrict__ logits,
+    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
+    const int2* __restrict__ col_idx, const float2* __restrict__ col_w,
+    int h, int w, int C, int H, int W, int blocks_per_img, int* __restrict__ labels_out) {
+  const int n = blockIdx.x / blocks_per_img;
+  const int p = (blockIdx.x - n * blocks_per_img) * THREADS + threadIdx.x;
+  const int HW = H * W;
+  if (p >= HW) return;
+  const PixelTaps<T> taps = pixel_taps(logits + (size_t)n * h * w * C, p, w, C, W,
+                                       row_idx, row_w, col_idx, col_w);
+  labels_out[(size_t)n * HW + p] = taps_argmax(taps, C);
 }
 
 // Kernel B, first pass.  Same grid layout as A over all N rows.
@@ -273,6 +303,28 @@ int ee_upsample_argmax_confusion(
         (const float*)logits, (const int*)labels, (const int2*)row_idx,
         (const float2*)row_w, (const int2*)col_idx, (const float2*)col_w,
         h, w, C, H, W, bpi, (int*)counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+// logits (N, h, w, C) f32 or bf16 -> labels_out (N, H, W) int32.  Returns
+// cudaGetLastError().
+int ee_upsample_argmax(
+    const void* logits, int is_bf16,
+    const void* row_idx, const void* row_w, const void* col_idx, const void* col_w,
+    int N, int h, int w, int C, int H, int W, void* labels_out, void* stream) {
+  int bpi = 0;
+  const int blocks = grid_blocks(N, H, W, &bpi);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    up_argmax_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+        (const __nv_bfloat16*)logits, (const int2*)row_idx, (const float2*)row_w,
+        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, bpi, (int*)labels_out);
+  } else {
+    up_argmax_kernel<float><<<blocks, THREADS, 0, s>>>(
+        (const float*)logits, (const int2*)row_idx, (const float2*)row_w,
+        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, bpi, (int*)labels_out);
   }
   return (int)cudaGetLastError();
 }

@@ -3,14 +3,16 @@
 Port of ``ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py``.  The
 eval paths upsample every exit's low-res logits to input resolution only to
 argmax them (and, for the entropy gate, to take the softmax entropy).  The
-two hand-written CUDA kernels in ``csrc/upsample_heads.cu`` do that per
+three hand-written CUDA kernels in ``csrc/upsample_heads.cu`` do that per
 output pixel from the 2x2 low-res taps, so the upsampled (N, H, W, C)
 float32 tensor never exists:
 
 * ``upsample_argmax_confusion`` -> (3, C) TP/FP/FN of the argmax map
   against the labels, over rows ``n < count`` (kernel A);
 * ``upsample_entropy_argmax`` -> the (N, H, W) argmax map and the (N,)
-  per-image mean normalized entropy (kernel B).
+  per-image mean normalized entropy (kernel B);
+* ``upsample_argmax`` -> the (N, H, W) argmax map alone, for the
+  similarity gates (kernel C).
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (``*_plain``), a CUDA tensor launches the kernel or raises.
@@ -100,6 +102,11 @@ def upsample_entropy_argmax_plain(logits, out_hw):
     return up.argmax(dim=-1).int(), ent
 
 
+def upsample_argmax_plain(logits, out_hw):
+    """Plain version of :func:`upsample_argmax`."""
+    return _upsample_plain(logits, out_hw).argmax(dim=-1).int()
+
+
 def _check_logits(logits: torch.Tensor, out_hw) -> tuple[int, ...]:
     if logits.device.type != "cuda":
         raise ValueError(f"logits on {logits.device}: the kernels take CUDA tensors")
@@ -181,6 +188,29 @@ def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
     return labels, ent
 
 
+def upsample_argmax(logits: torch.Tensor, out_hw) -> torch.Tensor:
+    """(N, h, w, C) logits -> (N, H, W) int32 argmax of the bilinear
+    upsample.  Kernel C.  With ``(H, W) == (h, w)`` there is nothing to
+    upsample and the result is the argmax itself, as in the JAX package."""
+    if tuple(int(d) for d in out_hw) == tuple(logits.shape[1:3]):
+        return logits.argmax(dim=-1).int()
+    if logits.device.type == "cpu":
+        return upsample_argmax_plain(logits, out_hw)
+    N, h, w, C, H, W = _check_logits(logits, out_hw)
+    lib = _build.load_library()
+    labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
+    if N == 0:
+        return labels
+    with torch.cuda.device(logits.device):
+        err = lib.ee_upsample_argmax(
+            *_launch_args(logits, H, W), N, h, w, C, H, W, labels.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "upsample_argmax")
+    upsample_argmax.launches += 1
+    return labels
+
+
 upsample_argmax_confusion.launches = 0
 upsample_entropy_argmax.launches = 0
-KERNELS = (upsample_argmax_confusion, upsample_entropy_argmax)
+upsample_argmax.launches = 0
+KERNELS = (upsample_argmax_confusion, upsample_entropy_argmax, upsample_argmax)

@@ -1,9 +1,11 @@
-"""Segmentation metrics: confusion counts and the streaming dataset mIoU.
+"""Segmentation metrics: confusion counts, the streaming dataset mIoU and the
+per-image mIoU.
 
 Port of the evaluation half of ``ee_semantic_segmentation_tpu/ops/metrics.py``
-(``confusion_counts``, ``confusion_update``, ``mIoU``).  Semantics are the
-JAX package's: a void label (outside ``[0, C)``) matches no class, so its
-pixel counts as FP for the predicted class only.
+(``confusion_counts``, ``confusion_update``, ``mIoU``, ``_img_miou_one``,
+``img_mIoU``).  Semantics are the JAX package's: a void label (outside
+``[0, C)``) matches no class, so its pixel counts as FP for the predicted
+class only.
 
 The JAX version builds one-hot products; at 512², batch 16 and 3 exits that
 tensor is about 1 GB in eager PyTorch.  Here the counts come from ONE
@@ -90,3 +92,54 @@ class mIoU:
             return float(np.mean(ciou)) if ciou.size else float("nan")
         # 'nan': NaN propagates, matching the reference (compute_mIoU.py:35).
         return float(np.sum(ciou) / self.C)
+
+
+def _img_miou_one(pred: torch.Tensor, tgt: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(..., P) predicted and true label maps -> (...,) float32 mean IoU
+    over the classes present in each image's truth (compute_mIoU.py:43-57).
+    ``num_classes`` must cover the void id (VOC: 22), which the reference's
+    ``unique()`` counts as a class; labels outside [0, num_classes) belong
+    to no class."""
+    lead = pred.shape[:-1]
+    K = num_classes + 1  # bucket num_classes takes what is out of range
+    pred = pred.reshape(-1, pred.shape[-1]).long()
+    tgt = tgt.reshape(pred.shape).long()
+    pred = torch.where((pred >= 0) & (pred < num_classes), pred, num_classes)
+    tgt = torch.where((tgt >= 0) & (tgt < num_classes), tgt, num_classes)
+    offset = torch.arange(pred.shape[0], device=pred.device)[:, None] * (K * K)
+    joint = torch.bincount((offset + pred * K + tgt).reshape(-1), minlength=pred.shape[0] * K * K)
+    joint = joint.reshape(-1, K, K).to(torch.float32)  # [image, predicted, true]
+    inter = joint.diagonal(dim1=1, dim2=2)[:, :num_classes]
+    gt = joint.sum(dim=1)[:, :num_classes]
+    pr = joint.sum(dim=2)[:, :num_classes]
+    union = gt + pr - inter
+    present = gt > 0
+    iou = torch.where(present, inter / union.clamp_min(1.0), 0.0)
+    return (iou.sum(-1) / present.sum(-1).to(torch.float32).clamp_min(1.0)).reshape(lead)
+
+
+class img_mIoU:
+    """Streaming per-image mIoU (compute_mIoU.py:38-63)."""
+
+    def __init__(self, num_classes: int = 22):
+        self.num_classes = num_classes
+        self.reset()
+
+    def reset(self):
+        self.total = 0.0
+        self.count = 0
+
+    def __call__(self, y_pred, target):
+        pred = y_pred.argmax(dim=-1) if y_pred.is_floating_point() else _squeeze_target(y_pred)
+        tgt = _squeeze_target(target)
+        self.total += float(_img_miou_one(pred.reshape(-1), tgt.reshape(-1), self.num_classes))
+        self.count += 1
+
+    def add_score(self, value: float, n: int = 1):
+        """Fold in already-computed per-image scores (the batched evaluators
+        compute ``_img_miou_one`` on the device)."""
+        self.total += float(value)
+        self.count += n
+
+    def compute(self) -> float:
+        return self.total / self.count if self.count > 0 else float("nan")

@@ -255,13 +255,3 @@ def test_cross_entropy_per_pixel_map_matches_jax():
     with jax.enable_x64(True):
         want = np.asarray(JX.cross_entropy(jnp.asarray(x[0]), jnp.asarray(labels), 5, None))
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-
-
-# ---------------------------------------------------------------- not ported
-def test_hist_bins_raises_naming_the_roadmap_item():
-    x, labels = _inputs(seed=1)
-    xt, lt = torch.from_numpy(x), torch.from_numpy(labels)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue B"):
-        TL.lovasz_softmax(xt[0], lt, hist_bins=1024)
-    with pytest.raises(NotImplementedError, match="kernels E and F"):
-        TB.LovaszSoftmax(ignore=5, n_branches=2, hist_bins=1024)(xt, lt)

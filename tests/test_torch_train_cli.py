@@ -81,17 +81,21 @@ def test_checkpoint_with_optimizer_state_resumes_the_same_trajectory(tmp_path):
         TC.load_checkpoint(path, model, components=("weights",))
 
 
-@pytest.mark.parametrize("cli_name", ["main_bradeepv3", "main_bradeepv3_ce"])
-def test_training_cli_end_to_end_on_cpu(tmp_path, monkeypatch, cli_name):
+@pytest.mark.parametrize("cli_name,extra", [("main_bradeepv3", []),
+                                            ("main_bradeepv3_ce", []),
+                                            ("main_bradeepv3", ["-G", "1024"])],
+                         ids=["main_bradeepv3", "main_bradeepv3_ce", "main_bradeepv3-G"])
+def test_training_cli_end_to_end_on_cpu(tmp_path, monkeypatch, cli_name, extra):
     """One epoch of the synthetic set at 32 px: checkpoint (.pt, .opt.pt,
     .json with the JAX package's schema), the curve CSV and the test-mIoU
-    row in the JAX layouts, and a checkpoint the eval CLI loads."""
+    row in the JAX layouts, and a checkpoint the eval CLI loads; with -G,
+    the histogram Lovász."""
     from ee_semantic_segmentation_tpu.train.checkpoint import load_config as j_load_config
     from ee_semantic_segmentation_tpu_torch.cli import eval_miou
 
     cli = importlib.import_module(f"ee_semantic_segmentation_tpu_torch.cli.{cli_name}")
     monkeypatch.chdir(tmp_path)
-    ckpt = cli.main(TRAIN_ARGS + ["-N", "tiny", "--device", "cpu"])
+    ckpt = cli.main(TRAIN_ARGS + extra + ["-N", "tiny", "--device", "cpu"])
     assert ckpt == str(tmp_path / "synthetic_results" / "tiny" / "tiny")
     for suffix in (".pt", ".opt.pt", ".json"):
         assert (tmp_path / "synthetic_results" / "tiny" / f"tiny{suffix}").exists(), suffix
@@ -120,7 +124,5 @@ def test_training_cli_raises_for_what_is_not_there(tmp_path, monkeypatch):
         for cli in (main_bradeepv3, main_bradeepv3_ce):
             with pytest.raises(RuntimeError, match="--device cpu"):
                 cli.main(TRAIN_ARGS)
-    with pytest.raises(NotImplementedError, match="kernels E and F"):
-        main_bradeepv3.main(TRAIN_ARGS + ["-G", "1024", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="queue A item 6"):
         main_bradeepv3_ce.main(TRAIN_ARGS + ["--sp", "2", "--device", "cpu"])
