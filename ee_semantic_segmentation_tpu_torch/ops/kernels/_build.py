@@ -39,9 +39,12 @@ _SIGNATURES = {
         [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P], _I),
     # logits, is_bf16, row_idx, row_w, col_idx, col_w, N, h, w, C, H, W, labels_out, stream
     "ee_upsample_argmax": ([_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
-    "ee_sort_log2_tile": ([], _I),
-    # key_in, pay_in, key_is_float, B, P, key_out, pay_out, scr_key, scr_pay, stream
-    "ee_sort_rows": ([_P, _P, _I, _L, _L, _P, _P, _P, _P, _P], _I),
+    # B, P -> int32 words of ee_sort_rows' aux
+    "ee_sort_aux_words": ([_L, _L], _L),
+    # key_in, pay_in, key_is_float, B, P, key_out, pay_out, scr_key, scr_pay, aux, stream
+    "ee_sort_rows": ([_P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P], _I),
+    # perm, vals, B, P, out, stream
+    "ee_unsort_rows": ([_P, _P, _L, _L, _P, _P], _I),
     "ee_hist_max_bins": ([], _I),
     # errors, fg, emax, inv_w, rows, P, bins, chunk, counts, out, stream
     "ee_hist2d_weighted": ([_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P], _I),

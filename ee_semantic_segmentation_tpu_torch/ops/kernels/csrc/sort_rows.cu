@@ -1,371 +1,431 @@
-// Per-row key-value sort for Hopper (sm_90a), plain C interface.
+// Per-row key-value sort and its inverse permutation scatter for Hopper
+// (sm_90a), plain C interface.
 //
 // Replaces the TPU (Pallas) kernel of the training path:
 //   D  ee_semantic_segmentation_tpu/ops/pallas/sort_kernel.py:293
 //      sort_pallas (_sort_kernel / bitonic_sort_2d, _merge_kernel /
 //      bitonic_merge_2d, chunk loop _sort_chunked): each row of (B, P) keys in
 //      ascending order, one 32-bit payload following its key.  The Lovász
-//      loss calls it twice per step: the forward sorts the negated errors
-//      with a packed (position, fg, valid) payload, the backward unsorts the
-//      gradient by sorting on the saved positions.
+//      loss calls it twice per step on the TPU: the forward sorts the negated
+//      errors with a packed (position, fg, valid) payload, the backward
+//      unsorts the gradient by sorting on the saved positions.  Here the
+//      forward calls ee_sort_rows and the backward ee_unsort_rows, a
+//      permutation scatter: the positions are a permutation of 0..P-1, so
+//      the sort on them has exactly one answer, out[r, perm[r, i]] = vals[r, i].
 //
-// Design: a bitonic network, like the JAX kernel, on a power-of-two row of
-// N >= P elements (the tail padded with keys that sort last).
-//   * Keys are compared as uint32 in an order-preserving map: a float32 key
-//     with its sign set has all bits flipped, else only the sign bit (NaNs
-//     first become one quiet NaN, so they sort last as in torch.sort); an
-//     int32 key has its sign bit flipped.  The padding key is 0xFFFFFFFF.
-//     One comparison serves both key types, and int32 position keys stay
-//     exact at every P.  The map is applied on the first load and undone on
-//     the last store, so it costs no pass of its own.
-//   * sort_tiles_kernel: one block sorts a tile of T = 2^13 elements (key and
-//     payload, 64 KB of dynamic shared memory) through stages 1..13 of the
-//     network.  Each compare-exchange takes its direction from bit s of the
-//     element's index in the whole row, so tiles come out in the alternating
-//     order the later stages need.  Shared memory holds the tile in padded
-//     slots (one pad word per 32); the network's levels run up to four at a
-//     time in registers; tiles move to and from device memory in 16-byte
-//     accesses (4-byte ones for rows whose P is not a multiple of 4).
-//   * For each stage s > 13, the distances d >= T run in device memory,
-//     up to four of them per merge_passes_kernel launch: a thread loads the
-//     16 elements those four distances pair among themselves (coalesced
-//     across the warp), orders them in registers, and stores them back.
-//     Then the distances below T run in merge_tiles_kernel, one
-//     shared-memory block per tile.
-//   * The kernel that ends the network writes the (B, P) outputs with the
-//     key map undone; the others write a (B, N) scratch the wrapper
-//     allocates.  A row of at most T elements is one sort_tiles_kernel.
-// Grid: one block per tile of every row, flattened into x (rows x tiles per
-// row), 64-bit offsets (B * N reaches 2^28 at the flagship).  Every launch
-// is on the caller's stream.
+// ee_sort_rows: a stable LSD radix sort of each row, 8-bit digits, 4 passes,
+// ping-pong between the (B, P) outputs and a (B, P) scratch the wrapper
+// allocates: input -> scratch -> output -> scratch -> output.
+//   * Digits come from an order-preserving uint32 image of the key: a
+//     float32 key first has -0.0 made +0.0 and every NaN made one quiet NaN
+//     (so it sorts last), then all bits flipped if its sign is set, else
+//     only the sign bit; an int32 key has its sign bit flipped.  The passes
+//     move the key's raw bits, so the sorted keys are the input's own bits.
+//     Being stable, the result equals torch.sort(stable=True) + gather bit
+//     for bit, keys and payloads (with NaN keys, the CPU's: torch.sort on
+//     CUDA sorts a NaN whose sign bit is set first), and needs no padding:
+//     any P >= 1.
+//   * A row is cut into tiles of kTile = 4096 elements.  Each pass is four
+//     launches: radix_hist_kernel counts the tile's digits (shared-memory
+//     histogram, one atomic per key); radix_scan_tiles /
+//     radix_scan_segs_kernel turn the (row, tile, digit) counts into each
+//     (tile, digit)'s offset in the row (an exclusive scan over tiles per
+//     digit in segments of kSegTiles tiles, then over segments and digits);
+//     radix_scatter_kernel reloads the tile (16-byte loads where 4 | P and
+//     the pointers are aligned), ranks it stably in shared memory (each warp
+//     owns 512 consecutive elements and ranks 32 at a time with a ballot
+//     match of the digit and per-warp digit counters), orders it by digit
+//     through a 16-bit index per element, and writes each digit's run with
+//     consecutive threads to consecutive addresses of the output row.
+// ee_unsort_rows: one pass, 16-byte loads of perm and vals, one 4-byte store
+// per element; blocks walk the rows in order (grid x = tiles of a row, y =
+// rows).  Indices outside [0, P) are dropped.
+// 64-bit row offsets (B * P reaches 2^28 at the flagship); P < 2^31.  Every
+// launch is on the caller's stream.
 //
 // Bound: bytes.  A sort has to read each key and payload once and write each
 // once: B * P * 16 bytes, 4.2 GB for the flagship's 63 rows of 2^22, 1.26 ms
-// at 3.35 TB/s; the compares (~log2(N)^2 / 4 per element) are integer work
-// far below the card's rate.  Every pass over device memory moves all
-// those bytes again: at P = 2^22, after the tile sort, the network has 45
-// distances >= T and 9 tile merges.  What the design does about it: the
-// first 13 stages (91 of the 253 distances at 2^22) and the 13 smallest
-// distances of every later stage stay in shared memory, and the 45 larger
-// distances run as 15 register passes.  A radix sort or a multi-way merge
-// that moves the row a few times only is later work.
+// at 3.35 TB/s; the digit work is integer and far below the card's rate.
+// The radix design moves the keys and payloads 4 times (16 bytes per
+// element each pass) and reads the keys once more per pass for the
+// histograms: 80 bytes per element, 5x the bound, against the bitonic
+// network's ~25 device-memory round trips at 2^22 that it replaces.  The
+// (row, tile, digit) counts add 1 KB per tile per pass.  What the design
+// does about the rest: the histograms take one shared atomic per key (a
+// pass costs about its key read), the scatter keeps only ranks in
+// registers (three blocks an SM), and its writes come out in runs of
+// ~16 consecutive elements per digit and tile.  The unsort reads 8 bytes
+// and writes 4 per element, 0.95 ms at the flagship; its stores are random
+// 4-byte writes, one L2 sector each, and that store rate, not the bytes,
+// is what holds it (PERF.md).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLogTile = 13;        // T = 8192 elements per shared-memory tile
-constexpr int kTileThreads = 512;   // T / 16 groups of 16 elements
-constexpr int kPassThreads = 256;
-constexpr int kMaxLevels = 4;       // network levels per register pass: 16 elements
-constexpr uint32_t kPadKey = 0xFFFFFFFFu;
+constexpr int kBits = 8;
+constexpr int kRadix = 1 << kBits;        // digits per pass
+constexpr int kPasses = 32 / kBits;
+constexpr int kThreads = 256;             // = kRadix: one thread per digit in the scans
+constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 16;                // elements per thread
+constexpr int kTile = kThreads * kItems;  // 4096 elements per tile
+constexpr int kWarpSpan = 32 * kItems;    // consecutive elements one warp ranks
+constexpr int kSegTiles = 64;             // tiles per segment of the tile scan
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kMaxGridY = 65535;
 
-__device__ __forceinline__ uint32_t to_ordered(uint32_t u, int key_is_float) {
-  if (key_is_float) {
-    if ((u & 0x7FFFFFFFu) > 0x7F800000u) u = 0x7FC00000u;  // one NaN, sorts last
+static_assert(kThreads == kRadix, "the per-digit steps take one thread per digit");
+
+template <bool kFloat>
+__device__ __forceinline__ uint32_t ordered(uint32_t u) {
+  if (kFloat) {
+    if ((u & 0x7FFFFFFFu) > 0x7F800000u) u = 0x7FC00000u;  // every NaN: one, sorts last
+    else if (u == 0x80000000u) u = 0u;                       // -0.0 ties with +0.0
     return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   }
   return u ^ 0x80000000u;
 }
 
-__device__ __forceinline__ uint32_t from_ordered(uint32_t u, int key_is_float) {
-  if (key_is_float) return (u & 0x80000000u) ? (u & 0x7FFFFFFFu) : ~u;
-  return u ^ 0x80000000u;
+template <bool kFloat>
+__device__ __forceinline__ uint32_t digit_of(uint32_t u, int shift) {
+  return (ordered<kFloat>(u) >> shift) & (kRadix - 1);
 }
 
-// Shared-memory slot of tile element i: one pad word per 32, so that the
-// strided groups of a register pass fall in distinct banks.
-__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
-
-// Order (ka, pa), (kb, pb) ascending, or descending when desc.
-__device__ __forceinline__ void order_pair(uint32_t& ka, uint32_t& kb, uint32_t& pa,
-                                           uint32_t& pb, bool desc) {
-  if (desc ? (ka < kb) : (ka > kb)) {
-    uint32_t t = ka; ka = kb; kb = t;
-    t = pa; pa = pb; pb = t;
-  }
-}
-
-// The L network levels at distances 2^(L-1) .. 1 of a group's 2^L elements
-// held in registers (element m of the group at distance m * 2^j_lo in the
-// row), all in one direction.
-template <int L>
-__device__ __forceinline__ void order_group(uint32_t (&k)[1 << L], uint32_t (&p)[1 << L],
-                                            bool desc) {
+// The lanes whose digit d equals this lane's, among the lanes with `in`
+// set: __match_any_sync built from one ballot per digit bit, as CUB's
+// MatchAny does (the native match made the scatter slower on the H100).
+// Every lane of the warp calls it.
+__device__ __forceinline__ unsigned match_digit(uint32_t d, bool in) {
+  unsigned peers = __ballot_sync(kFull, in);
 #pragma unroll
-  for (int l = L - 1; l >= 0; --l) {
-#pragma unroll
-    for (int m = 0; m < (1 << L); ++m) {
-      if (!(m & (1 << l))) order_pair(k[m], k[m + (1 << l)], p[m], p[m + (1 << l)], desc);
-    }
+  for (int b = 0; b < kBits; ++b) {
+    const unsigned ones = __ballot_sync(kFull, (d >> b) & 1u);
+    peers &= ((d >> b) & 1u) ? ones : ~ones;
   }
+  return peers;
 }
 
-// Levels j_lo + L - 1 .. j_lo of stage s on a shared-memory tile, one
-// round trip: each group {i0 + m * 2^j_lo} goes to registers and back.  The
-// direction is bit s of the element's index in the row, rbase + i, the same
-// for the whole group since s > j_lo + L - 1.
-template <int L>
-__device__ __forceinline__ void tile_passes(uint32_t* sk, uint32_t* sp, int T, int j_lo, int s,
-                                            long long rbase) {
-  constexpr int M = 1 << L;
-  const int d = 1 << j_lo;
-  for (int q = threadIdx.x; q < (T >> L); q += blockDim.x) {
-    const int i0 = ((q >> j_lo) << (j_lo + L)) | (q & (d - 1));
-    const bool desc = ((rbase + i0) >> s) & 1;
-    uint32_t k[M], p[M];
+// Add one key to a shared histogram.  One atomic per key: aggregating a
+// warp's equal digits first (a match, then one atomic per digit) made the
+// histogram pass several times slower on the H100, even on the Lovász
+// keys' skewed top byte.
+template <bool kFloat>
+__device__ __forceinline__ void count_digit(int* hist, uint32_t u, int shift) {
+  atomicAdd(&hist[digit_of<kFloat>(u, shift)], 1);
+}
+
+// Exclusive sum of v over the block's threads, in thread order.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      k[m] = sk[slot(i0 + m * d)];
-      p[m] = sp[slot(i0 + m * d)];
-    }
-    order_group<L>(k, p, desc);
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[w] = x;
+  __syncthreads();
+  int below = 0;
+  for (int i = 0; i < w; ++i) below += warp_sums[i];
+  __syncthreads();
+  return below + x - v;
+}
+
+// Digit counts of one tile: counts[(row * nt + t) * kRadix + d].
+template <bool kFloat>
+__global__ void __launch_bounds__(kThreads)
+radix_hist_kernel(const uint32_t* __restrict__ key, long long P, int nt, int shift, int vec,
+                  int* __restrict__ counts) {
+  __shared__ int hist[kRadix];
+  const long long row = blockIdx.x / nt;
+  const int t = blockIdx.x % nt;
+  const long long base = (long long)t * kTile;
+  const int n = int(P - base < kTile ? P - base : kTile);
+  const uint32_t* k = key + row * P + base;
+  hist[threadIdx.x] = 0;
+  __syncthreads();
+  if (vec) {  // 4 | P: n is a multiple of 4
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
-      sk[slot(i0 + m * d)] = k[m];
-      sp[slot(i0 + m * d)] = p[m];
-    }
-  }
-}
-
-// Levels j_top .. 0 of stage s on a shared-memory tile, up to kMaxLevels
-// per round trip.
-__device__ __forceinline__ void tile_levels(uint32_t* sk, uint32_t* sp, int T, int j_top, int s,
-                                            long long rbase) {
-  for (int j = j_top; j >= 0;) {
-    const int L = j + 1 < kMaxLevels ? j + 1 : kMaxLevels;
-    const int j_lo = j - L + 1;
-    switch (L) {
-      case 1: tile_passes<1>(sk, sp, T, j_lo, s, rbase); break;
-      case 2: tile_passes<2>(sk, sp, T, j_lo, s, rbase); break;
-      case 3: tile_passes<3>(sk, sp, T, j_lo, s, rbase); break;
-      default: tile_passes<4>(sk, sp, T, j_lo, s, rbase); break;
-    }
-    __syncthreads();
-    j = j_lo - 1;
-  }
-}
-
-// Four consecutive tile elements (i a multiple of 4: four consecutive
-// slots) between registers and shared memory.
-__device__ __forceinline__ uint4 get4(const uint32_t* s, int i) {
-  const int o = slot(i);
-  return make_uint4(s[o], s[o + 1], s[o + 2], s[o + 3]);
-}
-
-__device__ __forceinline__ void put4(uint32_t* s, int i, uint4 u) {
-  const int o = slot(i);
-  s[o] = u.x; s[o + 1] = u.y; s[o + 2] = u.z; s[o + 3] = u.w;
-}
-
-// Where a tile goes after its last pass: to the (B, N) scratch, or, when it
-// ends the network, to the (B, P) outputs with the key map undone.  Device
-// memory moves in 16-byte accesses: always for the scratch (T = 2^13
-// there), for the outputs when vec (4 | P, 16-byte aligned tensors).
-__device__ __forceinline__ void store_tile(const uint32_t* sk, const uint32_t* sp, int T,
-                                           long long tile, long long row, long long rbase,
-                                           long long P, int key_is_float, int final_out,
-                                           bool vec, uint32_t* scr_key, uint32_t* scr_pay,
-                                           uint32_t* out_key, uint32_t* out_pay) {
-  if (final_out && vec) {
-    uint32_t* ok = out_key + row * P;
-    uint32_t* op = out_pay + row * P;
-    for (int v = threadIdx.x; v < T / 4; v += blockDim.x) {
-      const long long g = rbase + 4 * v;
-      if (g < P) {
-        const uint4 k = get4(sk, 4 * v);
-        *reinterpret_cast<uint4*>(ok + g) =
-            make_uint4(from_ordered(k.x, key_is_float), from_ordered(k.y, key_is_float),
-                       from_ordered(k.z, key_is_float), from_ordered(k.w, key_is_float));
-        *reinterpret_cast<uint4*>(op + g) = get4(sp, 4 * v);
-      }
-    }
-  } else if (final_out) {
-    uint32_t* ok = out_key + row * P;
-    uint32_t* op = out_pay + row * P;
-    for (int l = threadIdx.x; l < T; l += blockDim.x) {
-      const long long g = rbase + l;
-      if (g < P) {
-        ok[g] = from_ordered(sk[slot(l)], key_is_float);
-        op[g] = sp[slot(l)];
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int e = 4 * (int(threadIdx.x) + i * kThreads);
+      if (e < n) {
+        const uint4 q = *reinterpret_cast<const uint4*>(k + e);
+        count_digit<kFloat>(hist, q.x, shift);
+        count_digit<kFloat>(hist, q.y, shift);
+        count_digit<kFloat>(hist, q.z, shift);
+        count_digit<kFloat>(hist, q.w, shift);
       }
     }
   } else {
-    uint4* tk = reinterpret_cast<uint4*>(scr_key + tile * T);
-    uint4* tp = reinterpret_cast<uint4*>(scr_pay + tile * T);
-    for (int v = threadIdx.x; v < T / 4; v += blockDim.x) {
-      tk[v] = get4(sk, 4 * v);
-      tp[v] = get4(sp, 4 * v);
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int e = int(threadIdx.x) + i * kThreads;
+      if (e < n) count_digit<kFloat>(hist, k[e], shift);
     }
   }
+  __syncthreads();
+  counts[((long long)row * nt + t) * kRadix + threadIdx.x] = hist[threadIdx.x];
 }
 
-// Stages 1..log2T of the network on each tile, from the (B, P) inputs.
-__global__ void __launch_bounds__(kTileThreads)
-sort_tiles_kernel(const uint32_t* __restrict__ key_in, const uint32_t* __restrict__ pay_in,
-                  int key_is_float, long long P, int log2N, int log2T, int final_out, int vec,
-                  uint32_t* scr_key, uint32_t* scr_pay, uint32_t* out_key, uint32_t* out_pay) {
-  extern __shared__ uint32_t smem[];
-  const int T = 1 << log2T;
-  uint32_t* sk = smem;
-  uint32_t* sp = smem + slot(T);
-  const long long tile = blockIdx.x;
-  const int shift = log2N - log2T;
-  const long long row = tile >> shift;
-  const long long rbase = (tile & ((1LL << shift) - 1)) << log2T;
-  const uint32_t* kin = key_in + row * P;
-  const uint32_t* pin = pay_in + row * P;
-  if (vec) {  // 4 | P: a quad is all real or all padding
-    for (int v = threadIdx.x; v < T / 4; v += blockDim.x) {
-      const long long g = rbase + 4 * v;
-      uint4 k = make_uint4(kPadKey, kPadKey, kPadKey, kPadKey), p = make_uint4(0u, 0u, 0u, 0u);
-      if (g < P) {
-        k = *reinterpret_cast<const uint4*>(kin + g);
-        p = *reinterpret_cast<const uint4*>(pin + g);
-        k = make_uint4(to_ordered(k.x, key_is_float), to_ordered(k.y, key_is_float),
-                       to_ordered(k.z, key_is_float), to_ordered(k.w, key_is_float));
-      }
-      put4(sk, 4 * v, k);
-      put4(sp, 4 * v, p);
+// Per (row, segment of kSegTiles tiles), thread d: the exclusive sum of
+// digit d's counts over the segment's tiles, in place, and the segment's
+// total, seg[(row * S + s) * kRadix + d].
+__global__ void __launch_bounds__(kThreads)
+radix_scan_tiles_kernel(int* __restrict__ counts, int nt, int S, int* __restrict__ seg) {
+  const long long row = blockIdx.x / S;
+  const int s = blockIdx.x % S;
+  const int t0 = s * kSegTiles;
+  const int t1 = t0 + kSegTiles < nt ? t0 + kSegTiles : nt;
+  int* c = counts + (row * nt) * kRadix + threadIdx.x;
+  int run = 0;
+#pragma unroll 8
+  for (int t = t0; t < t1; ++t) {
+    const int v = c[(long long)t * kRadix];
+    c[(long long)t * kRadix] = run;
+    run += v;
+  }
+  seg[(row * S + s) * kRadix + threadIdx.x] = run;
+}
+
+// Per row, thread d: each segment's totals become the row offset of the
+// segment's first digit-d element (digits below d, then digit d in the
+// earlier segments).
+__global__ void __launch_bounds__(kThreads)
+radix_scan_segs_kernel(int* __restrict__ seg, int S) {
+  __shared__ int warp_sums[kWarps];
+  int* c = seg + (long long)blockIdx.x * S * kRadix + threadIdx.x;
+  int run = 0;
+  for (int s = 0; s < S; ++s) {
+    const int v = c[s * kRadix];
+    c[s * kRadix] = run;
+    run += v;
+  }
+  const int below = block_exclusive_scan(run, warp_sums);
+  for (int s = 0; s < S; ++s) c[s * kRadix] += below;
+}
+
+// One pass over one tile: stable rank by digit, reorder in shared memory,
+// write each digit's run to its place in the output row.  Registers hold
+// only the ranks: the reorder goes through a 16-bit index per element, and
+// the keys and payloads stay where the load put them.
+template <bool kFloat>
+__global__ void __launch_bounds__(kThreads)
+radix_scatter_kernel(const uint32_t* __restrict__ key_in, const uint32_t* __restrict__ pay_in,
+                     long long P, int nt, int S, int shift, int vec,
+                     const int* __restrict__ counts, const int* __restrict__ seg,
+                     uint32_t* __restrict__ key_out, uint32_t* __restrict__ pay_out) {
+  __shared__ __align__(16) uint32_t sk[kTile];
+  __shared__ __align__(16) uint32_t sp[kTile];
+  __shared__ uint16_t order[kTile];            // tile position -> element, by (digit, rank)
+  __shared__ uint16_t wcount[kWarps][kRadix];  // per-warp digit counts, then offsets
+  __shared__ int dstart[kRadix];               // tile position of digit d's first element
+  __shared__ int dest[kRadix];                 // row position of tile position 0 for digit d
+  __shared__ int warp_sums[kWarps];
+  const long long row = blockIdx.x / nt;
+  const int t = blockIdx.x % nt;
+  const long long base = (long long)t * kTile;
+  const int n = int(P - base < kTile ? P - base : kTile);
+  const uint32_t* ki = key_in + row * P + base;
+  const uint32_t* pi = pay_in + row * P + base;
+
+  // 1. the tile to shared memory
+  if (vec) {
+    for (int v = threadIdx.x; 4 * v < n; v += kThreads) {
+      reinterpret_cast<uint4*>(sk)[v] = *reinterpret_cast<const uint4*>(ki + 4 * v);
+      reinterpret_cast<uint4*>(sp)[v] = *reinterpret_cast<const uint4*>(pi + 4 * v);
     }
   } else {
-    for (int l = threadIdx.x; l < T; l += blockDim.x) {
-      const long long g = rbase + l;
-      const bool real = g < P;
-      sk[slot(l)] = real ? to_ordered(kin[g], key_is_float) : kPadKey;
-      sp[slot(l)] = real ? pin[g] : 0u;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      sk[e] = ki[e];
+      sp[e] = pi[e];
+    }
+  }
+  for (int i = threadIdx.x; i < kWarps * kRadix; i += kThreads) (&wcount[0][0])[i] = 0;
+  __syncthreads();
+
+  // 2. stable rank within each warp's span: 32 consecutive elements a step,
+  // in order; peers with the same digit rank by lane, and the highest of
+  // them advances the warp's counter for that digit
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  int r[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int e = w * kWarpSpan + j * 32 + lane;
+    const bool in = e < n;
+    const uint32_t d = digit_of<kFloat>(in ? sk[e] : 0u, shift);
+    const unsigned peers = match_digit(d, in);
+    const int before = in ? wcount[w][d] : 0;
+    __syncwarp();
+    if (in && lane == 31 - __clz(peers)) wcount[w][d] = uint16_t(before + __popc(peers));
+    __syncwarp();
+    r[j] = before + __popc(peers & lanes_below);
+  }
+  __syncthreads();
+
+  // 3. thread d: the warps' offsets within digit d, the tile position of
+  // digit d's run, and where that run goes in the row
+  {
+    const int d = threadIdx.x;
+    int run = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      const int c = wcount[i][d];
+      wcount[i][d] = uint16_t(run);
+      run += c;
+    }
+    const int start = block_exclusive_scan(run, warp_sums);
+    dstart[d] = start;
+    dest[d] = seg[(row * S + t / kSegTiles) * kRadix + d] +
+              counts[((long long)row * nt + t) * kRadix + d] - start;
+  }
+  __syncthreads();
+
+  // 4. the tile's order by (digit, rank)
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int e = w * kWarpSpan + j * 32 + lane;
+    if (e < n) {
+      const uint32_t d = digit_of<kFloat>(sk[e], shift);
+      order[dstart[d] + wcount[w][d] + r[j]] = uint16_t(e);
     }
   }
   __syncthreads();
-  for (int s = 1; s <= log2T; ++s) tile_levels(sk, sp, T, s - 1, s, rbase);
-  store_tile(sk, sp, T, tile, row, rbase, P, key_is_float, final_out, vec, scr_key, scr_pay,
-             out_key, out_pay);
+
+  // 5. consecutive threads write consecutive addresses of each digit's run
+  uint32_t* ko = key_out + row * P;
+  uint32_t* po = pay_out + row * P;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int e = order[i];
+    const uint32_t u = sk[e];
+    const long long o = (long long)dest[digit_of<kFloat>(u, shift)] + i;
+    ko[o] = u;
+    po[o] = sp[e];
+  }
 }
 
-// Distances 2^(log2T - 1) .. 1 of stage s > log2T on each tile of the scratch.
-__global__ void __launch_bounds__(kTileThreads)
-merge_tiles_kernel(int key_is_float, long long P, int log2N, int log2T, int s, int final_out,
-                   int vec, uint32_t* scr_key, uint32_t* scr_pay, uint32_t* out_key,
-                   uint32_t* out_pay) {
-  extern __shared__ uint32_t smem[];
-  const int T = 1 << log2T;
-  uint32_t* sk = smem;
-  uint32_t* sp = smem + slot(T);
-  const long long tile = blockIdx.x;
-  const int shift = log2N - log2T;
-  const long long row = tile >> shift;
-  const long long rbase = (tile & ((1LL << shift) - 1)) << log2T;
-  const uint4* tk = reinterpret_cast<const uint4*>(scr_key + tile * T);
-  const uint4* tp = reinterpret_cast<const uint4*>(scr_pay + tile * T);
-  for (int v = threadIdx.x; v < T / 4; v += blockDim.x) {
-    put4(sk, 4 * v, tk[v]);
-    put4(sp, 4 * v, tp[v]);
-  }
-  __syncthreads();
-  tile_levels(sk, sp, T, log2T - 1, s, rbase);
-  store_tile(sk, sp, T, tile, row, rbase, P, key_is_float, final_out, vec, scr_key, scr_pay,
-             out_key, out_pay);
+__device__ __forceinline__ void put(uint32_t* out, long long P, uint32_t q, uint32_t v) {
+  if (q < P) out[q] = v;  // as uint32, a negative index is >= 2^31 > P
 }
 
-// Levels j_lo + L - 1 .. j_lo (distances >= T) of stage s over the (B, N)
-// scratch, in place and in one launch: each thread loads the 2^L elements
-// {i0 + m * 2^j_lo} those levels pair among themselves, coalesced across the
-// warp, orders them in registers and stores them back.
-template <int L>
-__global__ void __launch_bounds__(kPassThreads)
-merge_passes_kernel(uint32_t* __restrict__ key, uint32_t* __restrict__ pay, int log2N, int s,
-                    int j_lo, long long n_groups) {
-  constexpr int M = 1 << L;
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= n_groups) return;
-  const int log2g = log2N - L;  // groups per row: N / 2^L
-  const long long row = t >> log2g;
-  const long long g = t & ((1LL << log2g) - 1);
-  const long long i0 = ((g >> j_lo) << (j_lo + L)) | (g & ((1LL << j_lo) - 1));
-  const bool desc = (i0 >> s) & 1;
-  const long long d = 1LL << j_lo;
-  uint32_t* kr = key + (row << log2N) + i0;
-  uint32_t* pr = pay + (row << log2N) + i0;
-  uint32_t k[M], p[M];
+// out[r, perm[r, i]] = vals[r, i] over one tile of rows row0 + blockIdx.y.
+__global__ void __launch_bounds__(kThreads)
+unsort_kernel(const uint32_t* __restrict__ perm, const uint32_t* __restrict__ vals, long long P,
+              long long row0, int vec, uint32_t* __restrict__ out) {
+  const long long row = row0 + blockIdx.y;
+  const long long base = (long long)blockIdx.x * kTile;
+  const uint32_t* pr = perm + row * P;
+  const uint32_t* vr = vals + row * P;
+  uint32_t* o = out + row * P;
+  if (vec) {
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    k[m] = kr[m * d];
-    p[m] = pr[m * d];
-  }
-  order_group<L>(k, p, desc);
+    for (int i = 0; i < kItems / 4; ++i) {
+      const long long e = base + 4 * (threadIdx.x + i * kThreads);
+      if (e < P) {
+        const uint4 q = *reinterpret_cast<const uint4*>(pr + e);
+        const uint4 v = *reinterpret_cast<const uint4*>(vr + e);
+        put(o, P, q.x, v.x);
+        put(o, P, q.y, v.y);
+        put(o, P, q.z, v.z);
+        put(o, P, q.w, v.w);
+      }
+    }
+  } else {
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-    kr[m * d] = k[m];
-    pr[m * d] = p[m];
+    for (int i = 0; i < kItems; ++i) {
+      const long long e = base + threadIdx.x + i * kThreads;
+      if (e < P) put(o, P, pr[e], vr[e]);
+    }
   }
+}
+
+bool aligned(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
+
+long long tiles_per_row(long long P) { return (P + kTile - 1) / kTile; }
+long long segs_per_row(long long P) { return (tiles_per_row(P) + kSegTiles - 1) / kSegTiles; }
+
+template <bool kFloat>
+int sort_passes(const uint32_t* ki, const uint32_t* pi, long long B, long long P, uint32_t* ko,
+                uint32_t* po, uint32_t* sk, uint32_t* sp, int* counts, int* seg,
+                cudaStream_t st) {
+  const int nt = int(tiles_per_row(P)), S = int(segs_per_row(P));
+  const unsigned tiles = unsigned(B * nt);
+  const bool vec4 = P % 4 == 0;
+  const uint32_t* src_k = ki;
+  const uint32_t* src_p = pi;
+  cudaError_t err;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    uint32_t* dst_k = pass % 2 == 0 ? sk : ko;  // ends in the outputs
+    uint32_t* dst_p = pass % 2 == 0 ? sp : po;
+    const int shift = pass * kBits;
+    const int vec = vec4 && aligned(src_k) && aligned(src_p);
+    radix_hist_kernel<kFloat><<<tiles, kThreads, 0, st>>>(src_k, P, nt, shift, vec, counts);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    radix_scan_tiles_kernel<<<unsigned(B * S), kThreads, 0, st>>>(counts, nt, S, seg);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    radix_scan_segs_kernel<<<unsigned(B), kThreads, 0, st>>>(seg, S);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    radix_scatter_kernel<kFloat><<<tiles, kThreads, 0, st>>>(src_k, src_p, P, nt, S, shift, vec,
+                                                             counts, seg, dst_k, dst_p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    src_k = dst_k;
+    src_p = dst_p;
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-int ee_sort_log2_tile() { return kLogTile; }
+// int32 words of the (row, tile, digit) counts and (row, segment, digit)
+// offsets that ee_sort_rows needs as `aux` for B rows of P.
+long long ee_sort_aux_words(long long B, long long P) {
+  return B * (tiles_per_row(P) + segs_per_row(P)) * kRadix;
+}
 
 // Sort each of the B rows of P keys (key_is_float: float32, else int32)
-// ascending, the 32-bit payload following its key.  Outputs are (B, P);
-// scr_key / scr_pay are (B, N) with N the next power of two >= P, needed
-// (and read) only when N > 2^kLogTile.  Returns the first launch error.
+// ascending and stably, the 32-bit payload following its key.  Outputs,
+// scr_key and scr_pay are (B, P); aux holds ee_sort_aux_words(B, P) int32.
+// Returns the first launch error.
 int ee_sort_rows(const void* key_in, const void* pay_in, int key_is_float, long long B,
                  long long P, void* key_out, void* pay_out, void* scr_key, void* scr_pay,
-                 void* stream) {
+                 void* aux, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  int log2N = 0;
-  while ((1LL << log2N) < P) ++log2N;
-  const int log2T = log2N < kLogTile ? log2N : kLogTile;
-  const int T = 1 << log2T;
-  const size_t smem = size_t(T + (T >> 5)) * 2 * sizeof(uint32_t);  // padded slots
-  const int threads = T / 2 < 1 ? 1 : (T / 2 < kTileThreads ? T / 2 : kTileThreads);
-  const long long n_tiles = B << (log2N - log2T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const int max_smem = ((1 << kLogTile) + (1 << (kLogTile - 5))) * 2 * int(sizeof(uint32_t));
-  if ((err = cudaFuncSetAttribute(sort_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  max_smem)) != cudaSuccess)
-    return err;
-  if ((err = cudaFuncSetAttribute(merge_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  max_smem)) != cudaSuccess)
-    return err;
-
+  if (P >= (1LL << 31)) return cudaErrorInvalidValue;
   auto* ki = static_cast<const uint32_t*>(key_in);
   auto* pi = static_cast<const uint32_t*>(pay_in);
   auto* ko = static_cast<uint32_t*>(key_out);
   auto* po = static_cast<uint32_t*>(pay_out);
   auto* sk = static_cast<uint32_t*>(scr_key);
   auto* sp = static_cast<uint32_t*>(scr_pay);
+  int* counts = static_cast<int*>(aux);
+  int* seg = counts + B * tiles_per_row(P) * kRadix;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return key_is_float ? sort_passes<true>(ki, pi, B, P, ko, po, sk, sp, counts, seg, st)
+                      : sort_passes<false>(ki, pi, B, P, ko, po, sk, sp, counts, seg, st);
+}
 
-  const int single = log2N == log2T;
-  const auto aligned = [](const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; };
-  const int vec = P % 4 == 0 && aligned(ki) && aligned(pi) && aligned(ko) && aligned(po);
-  sort_tiles_kernel<<<unsigned(n_tiles), threads, smem, st>>>(ki, pi, key_is_float, P, log2N, log2T,
-                                                    single, vec, sk, sp, ko, po);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (single) return 0;
-
-  for (int s = log2T + 1; s <= log2N; ++s) {
-    // distances 2^(s-1) .. T, up to kMaxLevels of them per launch
-    for (int j = s - 1; j >= log2T;) {
-      const int L = j - log2T + 1 < kMaxLevels ? j - log2T + 1 : kMaxLevels;
-      const int j_lo = j - L + 1;
-      const long long n_groups = (B << log2N) >> L;
-      const unsigned blocks = unsigned((n_groups + kPassThreads - 1) / kPassThreads);
-      switch (L) {
-        case 1: merge_passes_kernel<1><<<blocks, kPassThreads, 0, st>>>(sk, sp, log2N, s, j_lo, n_groups); break;
-        case 2: merge_passes_kernel<2><<<blocks, kPassThreads, 0, st>>>(sk, sp, log2N, s, j_lo, n_groups); break;
-        case 3: merge_passes_kernel<3><<<blocks, kPassThreads, 0, st>>>(sk, sp, log2N, s, j_lo, n_groups); break;
-        default: merge_passes_kernel<4><<<blocks, kPassThreads, 0, st>>>(sk, sp, log2N, s, j_lo, n_groups); break;
-      }
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      j = j_lo - 1;
-    }
-    merge_tiles_kernel<<<unsigned(n_tiles), threads, smem, st>>>(key_is_float, P, log2N, log2T, s,
-                                                       s == log2N, vec, sk, sp, ko, po);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+// out[r, perm[r, i]] = vals[r, i] for (B, P) int32 perm whose rows are
+// permutations of 0..P-1 and 32-bit vals; indices outside [0, P) are
+// dropped.  Returns the first launch error.
+int ee_unsort_rows(const void* perm, const void* vals, long long B, long long P, void* out,
+                   void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (P >= (1LL << 31)) return cudaErrorInvalidValue;
+  auto* pr = static_cast<const uint32_t*>(perm);
+  auto* vr = static_cast<const uint32_t*>(vals);
+  auto* o = static_cast<uint32_t*>(out);
+  const int vec = P % 4 == 0 && aligned(pr) && aligned(vr);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (long long row0 = 0; row0 < B; row0 += kMaxGridY) {
+    const unsigned rows = unsigned(B - row0 < kMaxGridY ? B - row0 : kMaxGridY);
+    unsort_kernel<<<dim3(unsigned(tiles_per_row(P)), rows), kThreads, 0, st>>>(pr, vr, P, row0,
+                                                                               vec, o);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
   return 0;
 }

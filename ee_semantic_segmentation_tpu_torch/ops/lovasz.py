@@ -10,11 +10,14 @@ masked to zero.  The value is invariant to the order within tied errors.
 
 The JAX package ``vmap``s one sort per (exit, image or batch, class); here
 every such row is one row of a single (R, P) tensor, so a loss call makes
-one forward sort and one backward sort (``ops/kernels/sort.py``, kernel D
-on CUDA tensors).  ``_ClassLoss`` is the ``custom_vjp`` as a
-``torch.autograd.Function``: the Lovász weight vector is a constant in the
-backward (the reference detaches it), and the backward unsorts the
-gradient with a second sort keyed on the saved positions.
+one forward sort and one backward unsort (``ops/kernels/sort.py``: kernel D
+and its permutation scatter on CUDA tensors).  ``_ClassLoss`` is the
+``custom_vjp`` as a ``torch.autograd.Function``: the Lovász weight vector
+is a constant in the backward (the reference detaches it), and the backward
+puts the gradient back in pixel order with one scatter on the saved
+positions, ``out[perm[i]] = grad_sorted[i]``.  The JAX package unsorts with
+a second sort keyed on those positions because a scatter is slow on the
+TPU; the positions are a permutation, so both give the same values.
 
 The payload of the forward sort is the int32 ``pos << 2 | fg << 1 |
 valid``, moved as raw bits: exact for every P < 2^30, so the JAX package's
@@ -22,10 +25,10 @@ second branch for ``4P - 1 > 2^24`` (its float32 packing, a workaround of
 a TPU compiler hang) has no counterpart.
 
 The histogram form (``hist_bins``, the training CLI's ``-G``) replaces
-both sorts: each row's errors fall into ``hist_bins`` uniform-width
-descending buckets, the Lovász weights telescope over them, and a call
-makes one histogram launch forward (kernel E) and one table lookup
-backward (kernel F, ``ops/kernels/hist.py``).  It is approximate: a row's
+the sort and the unsort: each row's errors fall into ``hist_bins``
+uniform-width descending buckets, the Lovász weights telescope over them,
+and a call makes one histogram launch forward (kernel E) and one table
+lookup backward (kernel F, ``ops/kernels/hist.py``).  It is approximate: a row's
 loss is within (max error - min error) / hist_bins of the exact one.
 
 Layout: ``probas`` is (N, H, W, C) or (P, C), labels (N, H, W) or (P,).
@@ -40,11 +43,12 @@ from ee_semantic_segmentation_tpu_torch.ops.kernels.hist import (
     hist_bins_ok,
     table_lookup,
 )
-from ee_semantic_segmentation_tpu_torch.ops.kernels.sort import sort_rows
+from ee_semantic_segmentation_tpu_torch.ops.kernels.sort import sort_rows, unsort_rows
 
 _NEG_BIG = -1e30
 _POS_MASK = (1 << 30) - 1
 HIST_KERNELS = (hist2d_weighted, table_lookup)
+SORT_KERNELS = (sort_rows, unsort_rows)
 
 
 def lovasz_grad(gt_sorted: torch.Tensor, valid_sorted: torch.Tensor | None = None) -> torch.Tensor:
@@ -69,11 +73,12 @@ class _ClassLoss(torch.autograd.Function):
     ``errors``: raw ``|fg - pred|`` with void slots already at -1e30;
     ``fg``, ``valid``: (R, P) bool.  Returns the (R,) losses.  The gradient
     flows to ``errors`` only: d loss / d errors[r, p] = the Lovász weight
-    at p's rank in row r.
+    at p's rank in row r.  ``sort`` and ``unsort`` are kernel D and its
+    backward call or their plain versions.
     """
 
     @staticmethod
-    def forward(ctx, errors, fg, valid, sort):
+    def forward(ctx, errors, fg, valid, sort, unsort):
         R, P = errors.shape
         if P > _POS_MASK + 1:
             raise ValueError(f"rows of {P} pixels: the packed position needs P <= 2^30")
@@ -88,15 +93,15 @@ class _ClassLoss(torch.autograd.Function):
         grad = lovasz_grad(fg_s, valid_s)
         errors_sorted = torch.where(valid_s > 0, -neg_sorted, 0.0)
         ctx.save_for_backward(perm, grad * valid_s)
-        ctx.sort = sort
+        ctx.unsort = unsort
         return (errors_sorted * grad).sum(-1)
 
     @staticmethod
     def backward(ctx, ct):
         perm, grad_sorted = ctx.saved_tensors
-        # unsort: an ascending sort on the original positions
-        _, d_err = ctx.sort(perm, (grad_sorted * ct[:, None]).contiguous())
-        return d_err, None, None, None
+        # unsort: each row of perm is a permutation of 0..P-1
+        d_err = ctx.unsort(perm, (grad_sorted * ct[:, None]).contiguous())
+        return d_err, None, None, None, None
 
 
 def _hist_prepass(errors, valid, bins: int):
@@ -190,7 +195,8 @@ def present_class_counts(labels, valid, C: int) -> torch.Tensor:
 
 
 def _exit_group_losses(probas, labels, valid, classes="present", max_present=None,
-                       hist_bins=None, sort=sort_rows, hist_kernels=HIST_KERNELS) -> torch.Tensor:
+                       hist_bins=None, sort_kernels=SORT_KERNELS,
+                       hist_kernels=HIST_KERNELS) -> torch.Tensor:
     """Lovász of every (exit, group): ``probas`` (E, G, Pg, C), ``labels``
     and ``valid`` (G, Pg) -> (E, G) losses, from one sort (or, with
     ``hist_bins``, one histogram) of all E x G x classes rows.  A group is
@@ -220,7 +226,7 @@ def _exit_group_losses(probas, labels, valid, classes="present", max_present=Non
             fg.expand(E, G, K, Pg).reshape(E * G * K, Pg),
             valid[None, :, None, :].expand(E, G, K, Pg).reshape(E * G * K, Pg))
     if hist_bins is None:
-        losses = _ClassLoss.apply(*rows, sort)
+        losses = _ClassLoss.apply(*rows, *sort_kernels)
     else:
         losses = _HistClassLoss.apply(*rows, hist_bins, *hist_kernels)
     losses = losses.view(E, G, K)
@@ -234,12 +240,12 @@ def _exit_group_losses(probas, labels, valid, classes="present", max_present=Non
 
 def _lovasz_exits(probas, labels, classes="present", per_image=False, ignore=None,
                   apply_softmax=False, max_present=None, hist_bins=None,
-                  sort=sort_rows, hist_kernels=HIST_KERNELS) -> torch.Tensor:
+                  sort_kernels=SORT_KERNELS, hist_kernels=HIST_KERNELS) -> torch.Tensor:
     """Per-exit :func:`lovasz_softmax` of stacked (E, N, H, W, C) scores
     against shared (N, H, W) labels -> (E,), with one sort (or histogram)
-    for all exits.  ``sort`` and ``hist_kernels`` are the sort and the
-    (histogram, lookup) pair to use (the tests and ``chip_smoke.py`` pass
-    the plain versions)."""
+    for all exits.  ``sort_kernels`` and ``hist_kernels`` are the (sort,
+    unsort) and the (histogram, lookup) pairs to use (the tests and
+    ``chip_smoke.py`` pass the plain versions)."""
     if probas.ndim == 4:  # (E, N, H, W) sigmoid-style -> single channel
         probas = probas[..., None]
     E, N, H, W, C = probas.shape
@@ -250,10 +256,11 @@ def _lovasz_exits(probas, labels, classes="present", per_image=False, ignore=Non
              else flat_l != ignore)
     if per_image:
         per_group = _exit_group_losses(probas.reshape(E, N, H * W, C), flat_l, valid,
-                                       classes, max_present, hist_bins, sort, hist_kernels)
+                                       classes, max_present, hist_bins, sort_kernels,
+                                       hist_kernels)
         return per_group.mean(-1)
     return _exit_group_losses(probas.reshape(E, 1, N * H * W, C), flat_l.reshape(1, -1),
-                              valid.reshape(1, -1), classes, max_present, hist_bins, sort,
+                              valid.reshape(1, -1), classes, max_present, hist_bins, sort_kernels,
                               hist_kernels)[:, 0]
 
 

@@ -186,7 +186,7 @@ def test_hist_loss_within_the_analytic_bound_of_the_exact_loss(P, bins, seed):
     port's own sorted loss."""
     errors, fg, valid, _, _ = _rows(3, P, bins, seed=seed)
     e, f, v = (torch.from_numpy(a) for a in (errors, fg, valid))
-    exact = TL._ClassLoss.apply(e, f, v, TL.sort_rows)
+    exact = TL._ClassLoss.apply(e, f, v, *TL.SORT_KERNELS)
     hist = TL._HistClassLoss.apply(e, f, v, bins, *TL.HIST_KERNELS)
     for r in range(3):
         ev = errors[r][valid[r]]
@@ -219,7 +219,7 @@ def test_one_histogram_forward_and_one_lookup_backward_per_loss_call():
     x, labels = _inputs(seed=2)
     xt = torch.tensor(x, requires_grad=True)
     loss = TL._lovasz_exits(xt, torch.from_numpy(labels), per_image=True, ignore=5,
-                            hist_bins=128, sort=no_sort,
+                            hist_bins=128, sort_kernels=(no_sort, no_sort),
                             hist_kernels=(counting(TH.hist2d_weighted_plain),
                                           counting(TH.table_lookup_plain))).sum()
     rows = ((3 * 2 * 5, 8 * 9), torch.float32)

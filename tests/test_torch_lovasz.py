@@ -6,8 +6,9 @@ Value and gradient are held against ``jax.value_and_grad`` of the JAX
 functions in float64 on the same numpy inputs, to 1e-10: the Lovász weights
 are float32 on both sides, but they come from cumulative sums of 0/1
 indicators, which are exact, so the two sides agree to float64 rounding.
-The JAX side sorts with ``jax.lax.sort`` (its CPU backend); the port's with
-``sort_rows``, which takes its plain version for CPU tensors.  The golden
+The JAX side sorts with ``jax.lax.sort`` (its CPU backend) and unsorts the
+gradient with a second sort; the port sorts with ``sort_rows`` and unsorts
+with ``unsort_rows``, which take their plain versions for CPU tensors.  The golden
 values come from the reference's own torch code in float32, at the JAX
 tests' tolerance (rtol 1e-4).
 """
@@ -145,20 +146,44 @@ def test_branchy_lovasz_update_n_matches_jax_f64():
 
 def test_one_sort_forward_and_one_backward_per_loss_call(monkeypatch):
     """All exits, images and classes of a call share one forward sort (the
-    negated errors) and one backward sort (keyed on int32 positions)."""
+    negated errors, float32 keys, int32 payload) and one backward unsort
+    (int32 positions, float32 values); the backward sorts nothing."""
     calls = []
 
     def counting_sort(key, pay):
-        calls.append((tuple(key.shape), key.dtype, pay.dtype))
+        calls.append(("sort", tuple(key.shape), key.dtype, pay.dtype))
         return TS.sort_rows_plain(key, pay)
+
+    def counting_unsort(perm, vals):
+        calls.append(("unsort", tuple(perm.shape), perm.dtype, vals.dtype))
+        return TS.unsort_rows_plain(perm, vals)
 
     x, labels = _inputs(seed=2)
     xt = torch.tensor(x, dtype=torch.float32, requires_grad=True)
     loss = TL._lovasz_exits(xt, torch.from_numpy(labels), per_image=True, ignore=5,
-                            sort=counting_sort).sum()
-    assert len(calls) == 1 and calls[0] == ((3 * 2 * 5, 8 * 9), torch.float32, torch.int32)
+                            sort_kernels=(counting_sort, counting_unsort)).sum()
+    rows = (3 * 2 * 5, 8 * 9)
+    assert calls == [("sort", rows, torch.float32, torch.int32)]
     loss.backward()
-    assert len(calls) == 2 and calls[1] == ((3 * 2 * 5, 8 * 9), torch.int32, torch.float32)
+    assert calls == [("sort", rows, torch.float32, torch.int32),
+                     ("unsort", rows, torch.int32, torch.float32)]
+    assert TL.SORT_KERNELS == (TS.sort_rows, TS.unsort_rows)
+
+
+@pytest.mark.parametrize("case", ["batch", "per_image_ignore", "max_present"])
+def test_unsort_backward_equals_the_jax_unsort_by_sort(case):
+    """The backward's scatter gives the gradient that the JAX package's
+    second sort on the saved positions gives, bit for bit (float32)."""
+    kw = LOVASZ_CASES[case]
+    x, labels = _inputs(seed=13)
+    grads = []
+    for unsort in (TS.unsort_rows_plain, lambda perm, vals: TS.sort_rows_plain(perm, vals)[1]):
+        xt = torch.tensor(x, dtype=torch.float32, requires_grad=True)
+        TL._lovasz_exits(xt, torch.from_numpy(labels), sort_kernels=(TS.sort_rows_plain, unsort),
+                         **kw).sum().backward()
+        grads.append(xt.grad)
+    assert grads[0].abs().sum() > 0
+    assert torch.equal(grads[0], grads[1])
 
 
 # ---------------------------------------------------------------- golden values

@@ -1,13 +1,18 @@
-"""Kernel D's wrapper and plain version (``ops/kernels/sort.py``) against the
-JAX package's sort (``ops/pallas/sort_kernel.sort_pallas`` in interpret
-mode, and ``jax.lax.sort``), on the CPU.
+"""Kernel D's wrappers and plain versions (``ops/kernels/sort.py``: the sort
+and the backward's unsort) against the JAX package's sort
+(``ops/pallas/sort_kernel.sort_pallas`` in interpret mode, and
+``jax.lax.sort``), on the CPU.
 
-The CUDA kernel itself runs only on the card (``chip_smoke.py`` phase 3b).
-Here the wrapper takes its plain version because the tensors lie on the
-CPU.  A bitonic sort is unstable, so where keys tie, rows are compared as
-(key, payload) pairs in lexicographic order, as ``tests/test_sort_kernel.py``
-does.
+The CUDA kernels themselves run only on the card (``chip_smoke.py`` phase
+3b).  Here the wrappers take their plain versions because the tensors lie on
+the CPU.  The JAX sorts are unstable, so where keys tie, rows are compared
+with them as (key, payload) pairs in lexicographic order, as
+``tests/test_sort_kernel.py`` does; the port's sort is stable, and is held
+bit for bit against numpy's stable argsort.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +21,7 @@ import pytest
 import torch
 
 import ee_semantic_segmentation_tpu.ops.pallas.sort_kernel as SK
+from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
 from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as TS
 
 
@@ -42,6 +48,14 @@ def _keys(kind: str, rng, B: int, P: int):
         return (rng.randint(0, 16, (B, P)) - 7.5).astype(np.float32)
     if kind == "signed_zeros":  # -0.0 and 0.0 are equal keys in value
         return rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, 1e30], np.float32), (B, P))
+    if kind == "nan_zeros":  # +-0, NaNs of both signs, +-inf, +-1e30
+        nan = np.float32(np.nan)
+        vals = np.array([-0.0, 0.0, nan, -nan, np.inf, -np.inf, 1e30, -1e30, 0.5], np.float32)
+        return rng.choice(vals, (B, P))
+    if kind == "int_extremes":  # int32 keys incl. both ends of the range
+        ends = np.array([2**31 - 1, -2**31, 0, -1], np.int32)
+        keys = rng.randint(-2**31, 2**31, (B, P), dtype=np.int64).astype(np.int32)
+        return np.where(rng.rand(B, P) < 0.2, rng.choice(ends, (B, P)), keys)
     if kind == "perm":  # the backward's int32 position keys
         return np.stack([rng.permutation(P) for _ in range(B)]).astype(np.int32)
     raise ValueError(kind)
@@ -78,6 +92,8 @@ def test_plain_matches_chunked_sort_pallas(monkeypatch, B, P):
     ("signed_zeros", 2048, np.int32),
     ("perm", 5000, np.float32),
     ("randn", 1, np.int32),
+    ("nan_zeros", 3000, np.int32),
+    ("int_extremes", 2 * 67 * 101, np.int32),  # ragged, with the int32 key 2^31 - 1
 ])
 def test_plain_matches_lax_sort(kind, P, pay_type):
     rng = np.random.RandomState(P)
@@ -108,7 +124,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert TS.sort_rows.launches == 0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert TS.KERNELS == (TS.sort_rows,)
+    assert TS.KERNELS == (TS.sort_rows, TS.unsort_rows)
 
 
 def test_wrapper_rejects_a_tensor_that_is_neither_on_the_cpu_nor_on_cuda():
@@ -116,3 +132,103 @@ def test_wrapper_rejects_a_tensor_that_is_neither_on_the_cpu_nor_on_cuda():
     with pytest.raises(ValueError, match="CUDA tensors"):
         TS.sort_rows(key, torch.empty(2, 8, dtype=torch.int32, device="meta"))
     assert TS.sort_rows.launches == 0
+
+
+@pytest.mark.parametrize("kind,P", [
+    ("ties", 4096), ("ties", 3001), ("signed_zeros", 2048), ("nan_zeros", 5000),
+    ("int_extremes", 2 * 67 * 101), ("randn", 1),
+])
+def test_plain_sort_is_stable_and_keeps_the_key_bits(kind, P):
+    """``sort_rows_plain`` (the kernel's bit-for-bit contract) is numpy's
+    stable argsort: ties, -0.0 against +0.0 and NaNs of either sign (last)
+    keep their input order, and every key comes back as its own bits."""
+    rng = np.random.RandomState(P)
+    key = _keys(kind, rng, 3, P)
+    pay = np.arange(3 * P, dtype=np.int32).reshape(3, P)
+    got_k, got_p = _run_port(key, pay)
+    order = np.argsort(key, axis=-1, kind="stable")
+    want_k = np.take_along_axis(key, order, -1)
+    np.testing.assert_array_equal(got_k.view(np.int32), want_k.view(np.int32))
+    np.testing.assert_array_equal(got_p, np.take_along_axis(pay, order, -1))
+    ties = got_k[:, 1:] == got_k[:, :-1]
+    if kind == "nan_zeros":
+        ties |= np.isnan(got_k[:, 1:]) & np.isnan(got_k[:, :-1])
+        assert np.isnan(got_k[:, -1]).all()
+    assert (got_p[:, 1:] > got_p[:, :-1])[ties].all()
+
+
+def _perms(rng, B, P):
+    return np.stack([rng.permutation(P) for _ in range(B)]).astype(np.int32)
+
+
+def _values(rng, B, P, dtype):
+    if dtype == np.float32:  # a gradient, with a NaN, an inf and a -0.0 for the raw bits
+        v = rng.randn(B, P).astype(np.float32)
+        v.flat[:3] = [np.nan, -np.inf, -0.0][:min(3, v.size)]
+        return v
+    return rng.randint(-2**31, 2**31, (B, P), dtype=np.int64).astype(np.int32)
+
+
+@pytest.mark.parametrize("B,P,dtype", [
+    (3, 1024, np.float32), (2, 2 * 67 * 101, np.float32), (4, 1000, np.int32),
+    (3, 4097, np.int32), (1, 1, np.float32),
+])
+def test_unsort_plain_matches_the_jax_unsort_by_sort(B, P, dtype):
+    """``unsort_rows_plain`` (and the CPU ``unsort_rows``) equal the JAX
+    backward's unsort, ``jax.lax.sort((perm, vals), num_keys=1)[1]``, and
+    ``sort_rows_plain(perm, vals)[1]``, bit for bit."""
+    rng = np.random.RandomState(B * P)
+    perm, vals = _perms(rng, B, P), _values(rng, B, P, dtype)
+    want = np.asarray(jax.lax.sort((jnp.asarray(perm), jnp.asarray(vals)), num_keys=1)[1])
+    pt, vt = torch.from_numpy(perm), torch.from_numpy(vals)
+    bits = lambda a: np.asarray(a).view(np.int32)
+    np.testing.assert_array_equal(bits(TS.unsort_rows_plain(pt, vt).numpy()), bits(want))
+    np.testing.assert_array_equal(bits(TS.unsort_rows(pt, vt).numpy()), bits(want))
+    np.testing.assert_array_equal(bits(TS.sort_rows_plain(pt, vt)[1].numpy()), bits(want))
+
+
+def test_unsort_inverts_the_sort_payload_permutation():
+    """The Lovász round trip: sorting keys with an arange payload gives
+    ``perm``; unsorting the sorted keys by it gives the keys back."""
+    rng = np.random.RandomState(5)
+    key = torch.from_numpy(_keys("ties", rng, 4, 3000))
+    pos = torch.arange(3000, dtype=torch.int32).expand(4, -1).contiguous()
+    key_sorted, perm = TS.sort_rows(key, pos)
+    assert torch.equal(TS.unsort_rows(perm, key_sorted), key)
+
+
+def test_cpu_unsort_takes_the_plain_version_and_rejects_other_devices():
+    rng = np.random.RandomState(2)
+    perm = torch.from_numpy(_perms(rng, 3, 500))
+    vals = torch.from_numpy(rng.randn(3, 500).astype(np.float32))
+    TS.unsort_rows.launches = 0
+    assert torch.equal(TS.unsort_rows(perm, vals), TS.unsort_rows_plain(perm, vals))
+    assert TS.unsort_rows.launches == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TS.unsort_rows(torch.empty(2, 8, dtype=torch.int32, device="meta"),
+                       torch.empty(2, 8, device="meta"))
+    assert TS.unsort_rows.launches == 0
+
+
+def test_build_compiles_the_sort_source_with_plain_c_entry_points(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    with pytest.raises(RuntimeError, match="nvcc not found") as err:
+        _build.build(tmp_path)
+    assert "sort_rows.cu" in str(err.value)
+    for name in ("ee_sort_rows", "ee_unsort_rows", "ee_sort_aux_words"):
+        assert name in _build._SIGNATURES
+
+
+def test_every_declared_entry_point_is_defined_with_as_many_arguments():
+    """ctypes passes what ``_SIGNATURES`` declares: each name must be an
+    ``extern "C"`` function of ``csrc/*.cu`` with that many parameters."""
+    defined = {}
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', text, re.S):
+            for name, params in re.findall(r"^\S.*?\b(ee_\w+)\(([^)]*)\)\s*\{", block, re.M | re.S):
+                defined[name] = 0 if not params.strip() else params.count(",") + 1
+    assert defined, "no extern \"C\" entry point found"
+    assert set(defined) == set(_build._SIGNATURES)
+    for name, (args, _) in _build._SIGNATURES.items():
+        assert defined[name] == len(args), name
