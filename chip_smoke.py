@@ -20,20 +20,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    float32 payload (the backward's case, also at both flagship shapes):
    keys and payloads must equal ``torch.sort(stable=True)`` + ``gather``'s
    bit for bit (with NaN keys, the CPU's: on CUDA, ``torch.sort`` puts a
-   NaN whose sign bit is set first), and at the permutation cases the
-   unsort must equal
-   ``scatter_``'s; kernel, plain, library and bound times of D and of the
-   unsort at both flagship shapes, and one D call split per CUDA kernel
-   with ``torch.profiler``; then the multi-exit Lovász loss and its
-   gradient with D and the unsort vs with their plain versions on
-   flagship-shaped logits (3, 16, 512, 512, 21), equal;
+   NaN whose sign bit is set first), and at the permutation cases (also
+   at the unsort's bucket edges: rows of W - 1, W, W + 1 and 2W + 3 for
+   its window W, ragged 2*67*101, rows of 3, and rows past its two-pass
+   limit) the unsort must equal ``scatter_``'s and the sort's payload;
+   kernel, plain, library and bound times of D and of the unsort at both
+   flagship shapes, and one call of each split per CUDA kernel with
+   ``torch.profiler``; then the multi-exit Lovász loss and its gradient
+   with D and the unsort vs with their plain versions on flagship-shaped
+   logits (3, 16, 512, 512, 21), equal;
 3c. the histogram kernels E and F vs their plain versions (TF32 off) at the
-   flagship's ``-G 1024`` row shapes (63 rows of 2^22, 1008 of 2^18), a
+   flagship's ``-G 1024`` row shapes (63 rows of 2^22, 1008 of 2^18) on
+   uniform errors and on two Lovász-like error laws (``LOVASZ_LAWS``: a
+   random-init and a trained model's errors, crowded in a few buckets), a
    ragged row with 128 and with the largest supported bins, an all-void
    and an all-tied row: E's counts must equal the plain version's exactly,
-   its error sums agree within TOL_HIST_SUM_RTOL, F's output must equal
-   the plain version's bit for bit; kernel, plain, library and bound times
-   at both flagship shapes; then the ``-G 1024`` multi-exit Lovász value
+   its error sums agree within TOL_HIST_SUM_RTOL with the same sums in
+   float64, F's output must equal the plain version's bit for bit; kernel,
+   plain, library and bound times and one E call split per CUDA kernel at
+   the six flagship cases; then the ``-G 1024`` multi-exit Lovász value
    and gradient with the kernels vs with the plain versions on
    flagship-shaped logits (3, 16, 512, 512, 21);
 4. eval main path: the flagship branchy DeepLabV3-ResNet50 at 512² with
@@ -50,8 +55,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (one sort and one unsort per step for the sorted Lovász, one E and one
    F per step and no sort for ``-G``, none for CE), finite losses, the JAX package's CSV
    layouts, and each checkpoint evaluated by ``eval_miou``; then training
-   images/s over pre-loaded batches and the share of a step spent in the
-   loss's kernels;
+   images/s over pre-loaded batches, and one more step of each Lovász loss
+   under ``torch.profiler``: the device time of the loss's kernels inside
+   the step and their share of it;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -82,12 +88,10 @@ C = 21
 TOL_MAP_AGREE = 0.99999    # share of argmax pixels that must agree
 TOL_ENT_RTOL = 1e-4        # entropy: float association and expf vs softmax+log
 TOL_MIOU_ABS = 1e-4        # kernel head vs plain head, per-exit mIoU
-TOL_HIST_SUM_RTOL = 1e-4   # E's error sums vs the plain version's: both
-#                            are float32 atomic sums in varying order; the
-#                            plain version adds each bucket's ~4k terms one
-#                            by one (worst-case drift n * 2^-24 ~ 2.4e-4,
-#                            expected sqrt(n) * 2^-24 ~ 4e-6), the kernel in
-#                            two levels of ~64 terms
+TOL_HIST_SUM_RTOL = 1e-4   # E's error sums vs the same sums in float64
+#                            (hist_sums_f64): E adds most errors exactly as
+#                            integers (rounding <= 2^-17 an error), the rest
+#                            as float32 in two levels of atomics
 TOL_HIST_LOVASZ_RTOL = 1e-5  # -G loss, kernels vs plain versions: the same
 #                              tables (exact counts), error sums as above
 TRAIN_ACCUM = 1            # --accum_steps of the training runs at batch 16
@@ -221,15 +225,31 @@ def kernel_vs_plain(U, torch):
     return results
 
 
-def per_kernel_ms(fn, torch):
+def per_kernel_ms(fn, torch, want=None):
     """One call of ``fn`` under ``torch.profiler``: {CUDA kernel: [launches,
-    device ms]}."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
+    device ms]}.  ``want``: {start of a kernel's name: launches} that the
+    call makes.  After many profiler sessions in one process a session now
+    and then misses its first records; a trace short of ``want`` is taken
+    again (up to 5 times), with a line that says so if it stays short."""
+    for _ in range(5):
         torch.cuda.synchronize()
-    return {re.sub(r"^(void )?\(anonymous namespace\)::", "", e.key).split("(")[0]:
-            [e.count, round(e.device_time_total / 1e3, 3)]
-            for e in prof.key_averages() if e.device_time_total > 0}
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = {re.sub(r"^(void )?\(anonymous namespace\)::", "", e.key).split("(")[0]:
+               [e.count, round(e.device_time_total / 1e3, 3)]
+               for e in prof.key_averages() if e.device_time_total > 0}
+        if all(kernels_of(got, start)[0] >= n for start, n in (want or {}).items()):
+            return got
+    print(f"[profiler] five traces short of {want}; the last one is reported")
+    return got
+
+
+def kernels_of(trace, start):
+    """(launches, device ms) of the kernels of a ``per_kernel_ms`` trace
+    whose names start with ``start`` (a string or a tuple of them)."""
+    hits = [v for name, v in trace.items() if name.startswith(start)]
+    return sum(n for n, _ in hits), sum(ms for _, ms in hits)
 
 
 def bits_equal(a, b, torch) -> bool:
@@ -298,6 +318,14 @@ def sort_vs_plain(S, torch):
         "permutation keys, f32 payload 1008x2^18": lambda: (
             perm_keys(1008, 1 << 18), torch.randn(1008, 1 << 18, device="cuda", generator=g)),
     }
+    # the unsort's bucket edges: rows of one window less, one, one more and
+    # two and a bit (W = the kernel's window), a ragged row, rows of 3, and
+    # rows one window past the two-pass limit (the one-pass scatter)
+    W = S.unsort_window()
+    for B, P, what in ((8, W - 1, "W-1"), (8, W, "W"), (8, W + 1, "W+1"), (8, 2 * W + 3, "2W+3"),
+                       (8, ragged, "2*67*101"), (5, 3, "3"), (2, 4097 * W, "4097W")):
+        cases[f"permutation keys, f32 payload {B}x{what} (W={W})"] = (
+            lambda B=B, P=P: (perm_keys(B, P), torch.randn(B, P, device="cuda", generator=g)))
     results = {"sort_rows": {}, "unsort_rows": {}}
     for tag, make in cases.items():
         key, pay = make()
@@ -347,6 +375,8 @@ def sort_vs_plain(S, torch):
                 print(f"[sort-vs-plain] unsort at {shape}: kernel {r['ms']:.3f} ms, plain "
                       f"{r['plain_ms']:.3f} ms, library (scatter_ with int64 indices) "
                       f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms (bytes)")
+                print(f"[sort-vs-plain] unsort at {shape}, one call per CUDA kernel [launches, "
+                      f"ms]: {per_kernel_ms(lambda: S.unsort_rows(key, pay), torch, {'unsort_': 2})}")
                 del idx
             del uk, up
         if tag.startswith("flagship"):
@@ -361,7 +391,7 @@ def sort_vs_plain(S, torch):
                   f"library (torch.sort + gather) {r['library_ms']:.3f} ms, bound "
                   f"{r['bound_ms']:.4f} ms (bytes)")
             print(f"[sort-vs-plain] D at {tag}, one call per CUDA kernel [launches, ms]: "
-                  f"{per_kernel_ms(lambda: S.sort_rows(key, pay), torch)}")
+                  f"{per_kernel_ms(lambda: S.sort_rows(key, pay), torch, {'radix_': 16})}")
         del key, pay, ks, ps, kp, pp
         torch.cuda.empty_cache()
     return results
@@ -399,14 +429,51 @@ def lovasz_kernel_vs_plain(S, torch):
     torch.cuda.empty_cache()
 
 
-def hist_rows(R, P, g, torch):
-    """(R, P) Lovász-like errors in [0, 1.5) with 15 % of them void (-1e30),
-    a bool foreground of ~30 % of the valid pixels, and the valid mask."""
-    errors = 1.5 * torch.rand(R, P, device="cuda", generator=g)
-    valid = torch.rand(R, P, device="cuda", generator=g) >= 0.15
-    errors = torch.where(valid, errors, -1e30)
-    fg = (torch.rand(R, P, device="cuda", generator=g) < 0.3) & valid
-    return errors, fg, valid
+# the error laws of phase 3c: name -> (logit offset, logit scale) of the
+# foreground probability p = sigmoid(offset + scale * z), z ~ N(0, 1); a
+# background pixel's error is p, a foreground pixel's 1 - p
+LOVASZ_LAWS = {"Lovász-like, random init": (-3.0, 0.5), "Lovász-like, trained": (-9.0, 1.0)}
+
+
+def hist_rows(R, P, g, torch, law=None):
+    """(R, P) errors with 15 % of them void (-1e30), a bool foreground and
+    the valid mask.  With no ``law``: errors uniform in [0, 1.5), fg on ~30 %
+    of the valid pixels.  With a ``LOVASZ_LAWS`` name: fg on ~10 % of the
+    valid pixels and the errors of a -G step, |fg - p|, which cluster in a
+    few buckets (near 0 and 1 for the trained law)."""
+    if law is None:  # uniform errors, drawn in the order that earlier runs drew them
+        errors = 1.5 * torch.rand(R, P, device="cuda", generator=g)
+        valid = torch.rand(R, P, device="cuda", generator=g) >= 0.15
+        fg = (torch.rand(R, P, device="cuda", generator=g) < 0.3) & valid
+    else:
+        offset, scale = LOVASZ_LAWS[law]
+        valid = torch.rand(R, P, device="cuda", generator=g) >= 0.15
+        fg = (torch.rand(R, P, device="cuda", generator=g) < 0.1) & valid
+        p = torch.sigmoid(offset + scale * torch.randn(R, P, device="cuda", generator=g))
+        errors = torch.where(fg, 1 - p, p)
+    return torch.where(valid, errors, -1e30), fg, valid
+
+
+def hist_sums_f64(errors, fg, emax, inv_w, bins, torch):
+    """(R, 2, bins) [S, Sf]: the plain version's error sums, over its own
+    bucket ids, added up in float64.  E's sums are held against these: a
+    float32 sum of a bucket of millions of errors (a clustered row) drifts
+    by ~1e-4 of itself, the plain version's included."""
+    valid = errors > -1e29
+    idx = ((emax[:, None] - errors) * inv_w[:, None]).clamp(0, bins - 1).long()
+    e64 = torch.where(valid, errors.double(), 0.0)
+    out = torch.zeros(errors.shape[0], 2, bins, dtype=torch.float64, device=errors.device)
+    out[:, 0].scatter_add_(1, idx, e64)
+    out[:, 1].scatter_add_(1, idx, torch.where(fg, e64, 0.0))
+    return out
+
+
+def max_rel(got, want, torch):
+    """max |got - want| / |want| over the nonzero wants (a zero want must be
+    got exactly)."""
+    d = (got.double() - want).abs()
+    rel = torch.where(want != 0, d / want.abs(), torch.where(d > 0, math.inf, 0.0))
+    return float(rel.max())
 
 
 def hist_vs_plain(Hk, torch):
@@ -416,16 +483,19 @@ def hist_vs_plain(Hk, torch):
 
     g = torch.Generator(device="cuda").manual_seed(2)
     P_ragged, max_bins = 2 * 67 * 101, Hk.max_kernel_bins()
-    cases = {  # tag: (rows, P, bins)
-        SORT_MAIN_SHAPE: (63, 1 << 22, HIST_BINS),
-        SORT_PER_IMAGE_SHAPE: (1008, 1 << 18, HIST_BINS),
-        "ragged 8x(2*67*101), 128 bins": (8, P_ragged, 128),
-        f"ragged 8x(2*67*101), {max_bins} bins": (8, P_ragged, max_bins),
-        "4x2^20 with an all-void and an all-tied row": (4, 1 << 20, HIST_BINS),
+    cases = {  # tag: (rows, P, bins, error law)
+        SORT_MAIN_SHAPE: (63, 1 << 22, HIST_BINS, None),
+        SORT_PER_IMAGE_SHAPE: (1008, 1 << 18, HIST_BINS, None),
+        **{f"{shape}, {law}": (R, P, HIST_BINS, law) for law in LOVASZ_LAWS
+           for shape, (R, P) in ((SORT_MAIN_SHAPE, (63, 1 << 22)),
+                                 (SORT_PER_IMAGE_SHAPE, (1008, 1 << 18)))},
+        "ragged 8x(2*67*101), 128 bins": (8, P_ragged, 128, None),
+        f"ragged 8x(2*67*101), {max_bins} bins": (8, P_ragged, max_bins, None),
+        "4x2^20 with an all-void and an all-tied row": (4, 1 << 20, HIST_BINS, None),
     }
     results = {}
-    for tag, (R, P, bins) in cases.items():
-        errors, fg, valid = hist_rows(R, P, g, torch)
+    for tag, (R, P, bins, law) in cases.items():
+        errors, fg, valid = hist_rows(R, P, g, torch, law)
         if R == 4:
             errors[1], fg[1], valid[1] = -1e30, False, False  # all void
             errors[2], valid[2] = 0.25, True  # all tied (one bucket; sums exact)
@@ -439,16 +509,21 @@ def hist_vs_plain(Hk, torch):
         wp = Hk.table_lookup_plain(errors, fg, emax, inv_w, tables, bins=bins)
         torch.cuda.synchronize()
         counts_equal = bool(torch.equal(hk[:, :2], hp[:, :2]))
-        d_sum = (hk[:, 2:] - hp[:, 2:]).abs()
-        sum_rel = float((d_sum / hp[:, 2:].abs().clamp_min(1e-30)).max())
-        sum_err = float(d_sum.max())
+        s64 = hist_sums_f64(errors, fg, emax, inv_w, bins, torch)
+        sum_rel, plain_rel = max_rel(hk[:, 2:], s64, torch), max_rel(hp[:, 2:], s64, torch)
+        sum_err = float((hk[:, 2:].double() - s64).abs().max())
         lookup_equal = bool(torch.equal(wk.view(torch.int32), wp.view(torch.int32)))
+        fullest = float((hp[:, 0].amax(-1) / hp[:, 0].sum(-1).clamp_min(1)).mean())
         print(f"[hist-vs-plain] {tag}: counts equal {counts_equal} (total {int(hk[:, 0].sum())}"
-              f" of {R * P} pixels valid), error sums max|d| {sum_err:.3g} (rel {sum_rel:.3g}); "
-              f"lookup equal bit for bit {lookup_equal}")
+              f" of {R * P} pixels valid; fullest bucket {fullest:.3f} of a row), error sums vs "
+              f"their float64 sum max|d| {sum_err:.3g} (rel {sum_rel:.3g}; the float32 plain "
+              f"version's rel {plain_rel:.3g}, E vs it rel "
+              f"{max_rel(hk[:, 2:], hp[:, 2:].double(), torch):.3g}); lookup equal bit for bit "
+              f"{lookup_equal}")
         check(counts_equal, f"hist {tag}: E's counts differ from the plain version's")
-        check(bool(((hk[:, 2:] == hp[:, 2:]) | (d_sum <= TOL_HIST_SUM_RTOL * hp[:, 2:].abs())).all()),
-              f"hist {tag}: E's error sums differ by rel {sum_rel:.3g} > {TOL_HIST_SUM_RTOL}")
+        check(sum_rel <= TOL_HIST_SUM_RTOL,
+              f"hist {tag}: E's error sums differ from their float64 sum by rel {sum_rel:.3g} > "
+              f"{TOL_HIST_SUM_RTOL}")
         check(lookup_equal, f"hist {tag}: F's output differs from the plain version's")
         if R == 4:
             check(not hk[1].any() and not wk[1].any(), "the all-void row is not all zero")
@@ -479,15 +554,20 @@ def hist_vs_plain(Hk, torch):
                  float((wk - wp).abs().max())),
             ):
                 bound_ms, bound_by = bound(nbytes, ops)
+                slow = 5 if key == "E" else 20  # E's scatter_add_ versions are slow
                 r = results[key, tag] = dict(
-                    ms=median_ms(fn), plain_ms=median_ms(plain), library_ms=median_ms(lib),
-                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+                    ms=median_ms(fn), plain_ms=median_ms(plain, slow, 1),
+                    library_ms=median_ms(lib, slow, 1), bound_ms=bound_ms, bound_by=bound_by,
+                    max_abs_err=err)
                 print(f"[hist-vs-plain] {key} at {tag}, {bins} bins: kernel {r['ms']:.3f} ms, "
                       f"plain {r['plain_ms']:.3f} ms, library "
                       f"({'scatter_add_' if key == 'E' else 'gather'} over precomputed bucket "
                       f"ids) {r['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            e_split = per_kernel_ms(lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins),
+                                    torch, {"hist_kernel": 1, "hist_finalize_kernel": 1})
+            print(f"[hist-vs-plain] E at {tag}, one call per CUDA kernel [launches, ms]: {e_split}")
             del idx, fgv, idx4, src4, idx2, tab2
-        del errors, fg, valid, hk, hp, wk, wp, tables
+        del errors, fg, valid, hk, hp, wk, wp, tables, s64
         torch.cuda.empty_cache()
     errors, fg, valid = hist_rows(2, 1000, g, torch)
     try:
@@ -602,12 +682,19 @@ def training_path(S, Hk, kernels, torch):
     return launches
 
 
-def training_throughput(loss_kernel_ms, torch):
+# each loss kernel's CUDA kernels, by the start of their names in a trace
+LOSS_CUDA_KERNELS = {"sort_rows": ("radix_",), "unsort_rows": ("unsort_",),
+                     "hist2d_weighted": ("hist_kernel", "hist_finalize_kernel"),
+                     "table_lookup": ("lookup_kernel",)}
+
+
+def training_throughput(torch):
     """Phase 4b, end: train-step images/s of the flagship over pre-loaded
-    batches (the first step warms up; 4 more timed with CUDA events), and
-    the share of a step that the loss's kernels take (a sort and an
-    unsort, or one E and one F), from their phase-3b/3c times at the
-    step's row shape."""
+    batches (the first step warms up; 4 more timed with CUDA events), then
+    one more step of each Lovász loss under ``torch.profiler``: the device
+    time of each loss kernel inside the step (a sort and an unsort, or one E
+    and one F) and their share of the step.  Returns (images/s, share,
+    {loss: {kernel: in-step ms}})."""
     from ee_semantic_segmentation_tpu_torch.cli.common import resolve_test_set
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
@@ -630,9 +717,8 @@ def training_throughput(loss_kernel_ms, torch):
                                                hist_bins=HIST_BINS),
         "ce": BrXEntropyLoss(ignore_index=C, b_reduction="sum", n_exits=3),
     }
-    ips, share = {}, {}
+    ips, share, in_step = {}, {}, {}
     for name, loss_fn in losses.items():
-        kernel_ms = loss_kernel_ms.get(name, 0.0)
         torch.manual_seed(0)
         model = build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
         model = model.cuda().to(memory_format=torch.channels_last)
@@ -651,13 +737,26 @@ def training_throughput(loss_kernel_ms, torch):
             times.append(start.elapsed_time(end))
         step_ms = statistics.mean(times)
         ips[f"train {name}"] = bs / (step_ms / 1e3)
-        share[name] = kernel_ms / step_ms
         print(f"[train-throughput] {name}: step {step_ms:.1f} ms (steps {[round(t, 1) for t in times]}), "
-              f"{ips[f'train {name}']:.2f} images/s at 512x512 batch {bs}; the loss's kernels "
-              f"{kernel_ms:.2f} ms = {100 * share[name]:.1f} % of a step")
+              f"{ips[f'train {name}']:.2f} images/s at 512x512 batch {bs}")
+        if name != "ce":
+            want = ({"radix_": 16, "unsort_": 2} if name.startswith("lovasz")
+                    else {"hist_kernel": 1, "hist_finalize_kernel": 1, "lookup_kernel": 1})
+            trace = per_kernel_ms(lambda: step(*batches[0], 0.01), torch, want)
+            found = {k: kernels_of(trace, starts) for k, starts in LOSS_CUDA_KERNELS.items()}
+            in_step[name] = {k: ms for k, (_, ms) in found.items()}
+            launches = {k: n for k, (n, _) in found.items()}
+            kernel_ms = sum(in_step[name].values())
+            share[name] = kernel_ms / step_ms
+            cuda = {k: v for k, v in trace.items()
+                    if k.startswith(sum(LOSS_CUDA_KERNELS.values(), ()))}
+            print(f"[train-profile] {name}: one step under torch.profiler, the loss kernels' "
+                  f"device ms {json.dumps({k: round(v, 3) for k, v in in_step[name].items()})} "
+                  f"(CUDA launches {launches}; per CUDA kernel [launches, ms] {cuda}): "
+                  f"{kernel_ms:.2f} ms = {100 * share[name]:.2f} % of the {step_ms:.1f} ms step")
         del model, opt, step, loss
         torch.cuda.empty_cache()
-    return ips, share
+    return ips, share, in_step
 
 
 def read_csv(path):
@@ -913,13 +1012,7 @@ def main() -> int:
 
     # --------------------------------------------------------------- phase 4b
     launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
-    loss_kernel_ms = {
-        "lovasz": sum(m[SORT_MAIN_SHAPE]["ms"] for m in sort_measured.values()),
-        "lovasz_per_image": sum(m[SORT_PER_IMAGE_SHAPE]["ms"] for m in sort_measured.values()),
-        "hist_lovasz": sum(hist_measured[k, SORT_MAIN_SHAPE]["ms"] for k in "EF"),
-        "hist_lovasz_per_image": sum(hist_measured[k, SORT_PER_IMAGE_SHAPE]["ms"] for k in "EF"),
-    }
-    train_ips, kernel_share = training_throughput(loss_kernel_ms, torch)
+    train_ips, kernel_share, in_step = training_throughput(torch)
 
     # ---------------------------------------------------------------- phase 5
     kernels = []
@@ -945,6 +1038,7 @@ def main() -> int:
             "shape": SORT_MAIN_SHAPE,
             "per_image_shape": {k: v for k, v in by_shape[SORT_PER_IMAGE_SHAPE].items()
                                 if k.endswith("ms")},
+            "in_step_ms": {loss: in_step[loss][name] for loss in ("lovasz", "lovasz_per_image")},
             **({"role": "kernel D's backward call, in place of the JAX package's second sort "
                         "(ee_semantic_segmentation_tpu/ops/lovasz.py:168)"}
                if name == S.unsort_rows.__name__ else {}),
@@ -960,6 +1054,11 @@ def main() -> int:
             "library_ms": m["library_ms"], "shape": f"{SORT_MAIN_SHAPE}, {HIST_BINS} bins",
             "per_image_shape": {k: v for k, v in hist_measured[key, SORT_PER_IMAGE_SHAPE].items()
                                 if k.endswith("ms")},
+            "ms_by_error_law": {f"{shape}, {law}": hist_measured[key, f"{shape}, {law}"]["ms"]
+                                for law in LOVASZ_LAWS
+                                for shape in (SORT_MAIN_SHAPE, SORT_PER_IMAGE_SHAPE)},
+            "in_step_ms": {loss: in_step[loss][name]
+                           for loss in ("hist_lovasz", "hist_lovasz_per_image")},
         })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
                       "train_images_per_s": train_ips,

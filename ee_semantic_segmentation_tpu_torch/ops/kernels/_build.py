@@ -43,10 +43,15 @@ _SIGNATURES = {
     "ee_sort_aux_words": ([_L, _L], _L),
     # key_in, pay_in, key_is_float, B, P, key_out, pay_out, scr_key, scr_pay, aux, stream
     "ee_sort_rows": ([_P, _P, _I, _L, _L, _P, _P, _P, _P, _P, _P], _I),
-    # perm, vals, B, P, out, stream
-    "ee_unsort_rows": ([_P, _P, _L, _L, _P, _P], _I),
+    "ee_unsort_window": ([], _I),
+    # B, P -> int32 words of ee_unsort_rows' scratch
+    "ee_unsort_scratch_words": ([_L, _L], _L),
+    # perm, vals, B, P, out, scratch, stream
+    "ee_unsort_rows": ([_P, _P, _L, _L, _P, _P, _P], _I),
     "ee_hist_max_bins": ([], _I),
-    # errors, fg, emax, inv_w, rows, P, bins, chunk, counts, out, stream
+    # rows, bins -> int32 words of ee_hist2d_weighted's scratch
+    "ee_hist_scratch_words": ([_L, _I], _L),
+    # errors, fg, emax, inv_w, rows, P, bins, chunk, scratch, out, stream
     "ee_hist2d_weighted": ([_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P], _I),
     # errors, fg, emax, inv_w, tables, rows, P, bins, chunk, out, stream
     "ee_table_lookup": ([_P, _P, _P, _P, _P, _L, _L, _I, _L, _P, _P], _I),

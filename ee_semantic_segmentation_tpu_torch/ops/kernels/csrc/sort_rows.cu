@@ -37,9 +37,25 @@
 //     match of the digit and per-warp digit counters), orders it by digit
 //     through a 16-bit index per element, and writes each digit's run with
 //     consecutive threads to consecutive addresses of the output row.
-// ee_unsort_rows: one pass, 16-byte loads of perm and vals, one 4-byte store
-// per element; blocks walk the rows in order (grid x = tiles of a row, y =
-// rows).  Indices outside [0, P) are dropped.
+// ee_unsort_rows: a two-pass scatter through a staging copy bucketed by the
+// destination.  Bucket b of a row is window b of the output row, the
+// destinations [b * W, b * W + W) with W = 2^14: a permutation sends exactly
+// min(W, P - b * W) elements there, so its staging segment is known ahead
+// and no counting pass is needed.
+//   * unsort_partition_kernel, one block per tile of 2^14 consecutive
+//     (perm, vals) (16-byte loads where 4 | P): counts the tile per bucket
+//     in shared memory, reserves a run in each nonempty bucket's segment
+//     with one global atomic on a (row, bucket) cursor, orders the tile by
+//     bucket in shared memory, and writes each run (the value and its 16-bit
+//     offset in the window) with one warp per bucket to consecutive slots.
+//   * unsort_place_kernel, one block per (row, bucket): reads its segment,
+//     stores each value at its offset in a 64 KB shared-memory window, and
+//     writes the window to the output with 16-byte stores where 4 | P.
+//   The order within a bucket is the atomics' and does not matter, so the
+//   result is deterministic.  Indices outside [0, P) are dropped; a run is
+//   cut at its segment's end, so repeated indices cannot write past it.
+//   Rows of more than 4096 windows (P > 2^26) take unsort_kernel, a
+//   one-pass scatter (16-byte loads, one 4-byte store per element).
 // 64-bit row offsets (B * P reaches 2^28 at the flagship); P < 2^31.  Every
 // launch is on the caller's stream.
 //
@@ -54,10 +70,16 @@
 // does about the rest: the histograms take one shared atomic per key (a
 // pass costs about its key read), the scatter keeps only ranks in
 // registers (three blocks an SM), and its writes come out in runs of
-// ~16 consecutive elements per digit and tile.  The unsort reads 8 bytes
-// and writes 4 per element, 0.95 ms at the flagship; its stores are random
-// 4-byte writes, one L2 sector each, and that store rate, not the bytes,
-// is what holds it (PERF.md).
+// ~16 consecutive elements per digit and tile.  The unsort has to read 8
+// bytes and write 4 per element: 0.95 ms at the flagship.  A one-pass
+// scatter moves just that, but as random 4-byte stores of one L2 sector
+// each, and their rate held it at 6.34 ms (one H100 80GB HBM3 at 700 W,
+// PERF.md).  The two passes move twice the bytes, 24 per element (pass 1
+// reads 8 and writes 6, pass 2 reads 6 and writes 4), all of them in
+// coalesced runs (~64 elements a (tile, bucket) at 2^22): 2.51 ms at 63 x
+// 2^22 and 2.32 at 1008 x 2^18 on the same card, pass 1 1.6 ms and pass 2
+// 0.9 (PERF.md §6 for the windows and tiles tried).  Scratch: B * P * 6
+// bytes of staging and B * ceil(P / W) cursors.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,6 +97,14 @@ constexpr int kWarpSpan = 32 * kItems;    // consecutive elements one warp ranks
 constexpr int kSegTiles = 64;             // tiles per segment of the tile scan
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxGridY = 65535;
+// the unsort: windows of the output row, the partition's tiles
+constexpr int kUnsortLogW = 14;
+constexpr int kUnsortW = 1 << kUnsortLogW;  // elements of a window (64 KB)
+constexpr int kUnsortMaxBuckets = 4096;     // windows a row may have in the two-pass unsort
+constexpr int kPartThreads = 512;
+constexpr int kPartItems = 32;              // elements per thread of the partition
+constexpr int kPartTile = kPartThreads * kPartItems;
+constexpr int kPlaceThreads = 512;
 
 static_assert(kThreads == kRadix, "the per-digit steps take one thread per digit");
 
@@ -310,6 +340,7 @@ __device__ __forceinline__ void put(uint32_t* out, long long P, uint32_t q, uint
   if (q < P) out[q] = v;  // as uint32, a negative index is >= 2^31 > P
 }
 
+// The one-pass scatter, for rows of more than kUnsortMaxBuckets windows:
 // out[r, perm[r, i]] = vals[r, i] over one tile of rows row0 + blockIdx.y.
 __global__ void __launch_bounds__(kThreads)
 unsort_kernel(const uint32_t* __restrict__ perm, const uint32_t* __restrict__ vals, long long P,
@@ -341,9 +372,162 @@ unsort_kernel(const uint32_t* __restrict__ perm, const uint32_t* __restrict__ va
   }
 }
 
+// Tile position of item i of this thread: 16-byte groups of four where
+// vec, else one element every kPartThreads.
+__device__ __forceinline__ int part_pos(int i, int vec) {
+  return vec ? 4 * (int(threadIdx.x) + (i >> 2) * kPartThreads) + (i & 3)
+             : int(threadIdx.x) + i * kPartThreads;
+}
+
+// Unsort pass 1 over one tile of kPartTile consecutive elements of a row.
+// Bucket b holds the elements whose destination lies in window b, perm >>
+// kUnsortLogW.  The block counts its tile per bucket, reserves a run of
+// that many slots in each bucket's staging segment [b * W, b * W + W) with
+// one global atomic on the (row, bucket) cursor, orders the tile by bucket
+// in shared memory, and writes each bucket's run (value, and offset inside
+// the window) to consecutive staging slots, one warp per bucket.  Within a
+// bucket the order is the shared atomics' and does not matter: pass 2
+// places each value by its offset.  A destination outside [0, P) is
+// dropped; a run is cut at its segment's end, so repeated destinations
+// cannot write past it.
+__global__ void __launch_bounds__(kPartThreads)
+unsort_partition_kernel(const uint32_t* __restrict__ perm, const uint32_t* __restrict__ vals,
+                        long long P, int nt, int nb, int vec, int* __restrict__ cursors,
+                        uint32_t* __restrict__ st_val, uint16_t* __restrict__ st_off) {
+  extern __shared__ __align__(16) unsigned char part_smem[];
+  uint32_t* s_val = reinterpret_cast<uint32_t*>(part_smem);     // the tile by bucket
+  uint16_t* s_off = reinterpret_cast<uint16_t*>(s_val + kPartTile);
+  int* s_start = reinterpret_cast<int*>(s_off + kPartTile);   // bucket b's first tile position
+  int* s_end = s_start + nb;  // its count, then its fill cursor, then its end
+  int* s_dst = s_end + nb;    // staging slot of tile position 0 for bucket b
+  __shared__ int warp_sums[kPartThreads / 32];
+  const long long row = blockIdx.x / nt;
+  const long long base = (long long)(blockIdx.x % nt) * kPartTile;
+  const int n = int(P - base < kPartTile ? P - base : kPartTile);
+  const uint32_t* pr = perm + row * P + base;
+  const uint32_t* vr = vals + row * P + base;
+  for (int b = threadIdx.x; b < nb; b += kPartThreads) s_end[b] = 0;
+
+  // 1. the destinations in registers (~0u: none), counted per bucket
+  uint32_t q[kPartItems];
+  if (vec) {  // 4 | P: n is a multiple of 4
+#pragma unroll
+    for (int i = 0; i < kPartItems; i += 4) {
+      const int e = part_pos(i, 1);
+      const uint4 v = e < n ? *reinterpret_cast<const uint4*>(pr + e) : make_uint4(~0u, ~0u, ~0u, ~0u);
+      q[i] = v.x, q[i + 1] = v.y, q[i + 2] = v.z, q[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPartItems; ++i) {
+      const int e = part_pos(i, 0);
+      q[i] = e < n ? pr[e] : ~0u;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPartItems; ++i) {
+    if (q[i] >= P) q[i] = ~0u;  // as uint32, a negative index is >= 2^31 > P
+    else atomicAdd(&s_end[q[i] >> kUnsortLogW], 1);
+  }
+  __syncthreads();
+
+  // 2. each thread scans a run of consecutive buckets; a nonempty bucket
+  // reserves its run in the staging segment
+  {
+    const int per = (nb + kPartThreads - 1) / kPartThreads;
+    const int b0 = int(threadIdx.x) * per;
+    const int b1 = b0 + per < nb ? b0 + per : nb;
+    int run = 0;
+    for (int b = b0; b < b1; ++b) run += s_end[b];
+    run = block_exclusive_scan(run, warp_sums);
+    int* cur = cursors + row * nb;
+    for (int b = b0; b < b1; ++b) {
+      const int c = s_end[b];
+      if (c) s_dst[b] = b * kUnsortW + atomicAdd(&cur[b], c) - run;
+      s_start[b] = run;
+      s_end[b] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+
+  // 3. the tile ordered by bucket, with each value's offset in its window
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < kPartItems; i += 4) {
+      const int e = part_pos(i, 1);
+      if (e < n) {
+        const uint4 v = *reinterpret_cast<const uint4*>(vr + e);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (q[i + k] == ~0u) continue;
+          const int pos = atomicAdd(&s_end[q[i + k] >> kUnsortLogW], 1);
+          s_val[pos] = w[k];
+          s_off[pos] = uint16_t(q[i + k] & (kUnsortW - 1));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPartItems; ++i) {
+      if (q[i] == ~0u) continue;
+      const int pos = atomicAdd(&s_end[q[i] >> kUnsortLogW], 1);
+      s_val[pos] = vr[part_pos(i, 0)];
+      s_off[pos] = uint16_t(q[i] & (kUnsortW - 1));
+    }
+  }
+  __syncthreads();
+
+  // 4. one warp per bucket writes its run to consecutive staging slots
+  const int lane = threadIdx.x & 31;
+  uint32_t* sv = st_val + row * P;
+  uint16_t* so = st_off + row * P;
+  for (int b = threadIdx.x >> 5; b < nb; b += kPartThreads / 32) {
+    const int s = s_start[b], e = s_end[b];
+    if (s == e) continue;
+    const long long dst = s_dst[b];
+    const long long lim = (long long)(b + 1) * kUnsortW < P ? (long long)(b + 1) * kUnsortW : P;
+    for (int i = s + lane; i < e; i += 32) {
+      const long long d = dst + i;
+      if (d < lim) {
+        sv[d] = s_val[i];
+        so[d] = s_off[i];
+      }
+    }
+  }
+}
+
+// Unsort pass 2, one block per (row, bucket): the bucket's staged values go
+// to their offsets in a shared-memory window, and the window goes to the
+// output with consecutive (16-byte where vec) stores.
+__global__ void __launch_bounds__(kPlaceThreads)
+unsort_place_kernel(const int* __restrict__ cursors, const uint32_t* __restrict__ st_val,
+                    const uint16_t* __restrict__ st_off, long long P, int nb, int vec,
+                    uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t win[];  // kUnsortW
+  const long long row = blockIdx.x / nb;
+  const long long lo = (long long)(blockIdx.x % nb) * kUnsortW;
+  const int size = int(P - lo < kUnsortW ? P - lo : kUnsortW);
+  const int n = cursors[blockIdx.x] < size ? cursors[blockIdx.x] : size;
+  const long long base = row * P + lo;
+  for (int k = threadIdx.x; k < n; k += kPlaceThreads) win[st_off[base + k]] = st_val[base + k];
+  __syncthreads();
+  uint32_t* o = out + base;
+  if (vec) {  // 4 | P: size is a multiple of 4 and o 16-byte aligned
+    for (int k = threadIdx.x; 4 * k < size; k += kPlaceThreads)
+      reinterpret_cast<uint4*>(o)[k] = reinterpret_cast<const uint4*>(win)[k];
+  } else {
+    for (int k = threadIdx.x; k < size; k += kPlaceThreads) o[k] = win[k];
+  }
+}
+
 bool aligned(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
 long long tiles_per_row(long long P) { return (P + kTile - 1) / kTile; }
+long long unsort_buckets(long long P) { return (P + kUnsortW - 1) / kUnsortW; }
+bool unsort_two_pass(long long P) { return unsort_buckets(P) <= kUnsortMaxBuckets; }
 long long segs_per_row(long long P) { return (tiles_per_row(P) + kSegTiles - 1) / kSegTiles; }
 
 template <bool kFloat>
@@ -408,11 +592,23 @@ int ee_sort_rows(const void* key_in, const void* pay_in, int key_is_float, long 
                       : sort_passes<false>(ki, pi, B, P, ko, po, sk, sp, counts, seg, st);
 }
 
+// Elements of a window of the two-pass unsort (its buckets' size).
+int ee_unsort_window() { return kUnsortW; }
+
+// int32 words of the scratch that ee_unsort_rows needs for B rows of P: the
+// (row, bucket) cursors, then the staged values and their 16-bit offsets;
+// 0 for rows that take the one-pass scatter.
+long long ee_unsort_scratch_words(long long B, long long P) {
+  if (B <= 0 || P <= 0 || !unsort_two_pass(P)) return 0;
+  return B * unsort_buckets(P) + B * P + (B * P + 1) / 2;
+}
+
 // out[r, perm[r, i]] = vals[r, i] for (B, P) int32 perm whose rows are
 // permutations of 0..P-1 and 32-bit vals; indices outside [0, P) are
-// dropped.  Returns the first launch error.
+// dropped.  scratch holds ee_unsort_scratch_words(B, P) int32.  Returns the
+// first launch error.
 int ee_unsort_rows(const void* perm, const void* vals, long long B, long long P, void* out,
-                   void* stream) {
+                   void* scratch, void* stream) {
   if (B <= 0 || P <= 0) return 0;
   if (P >= (1LL << 31)) return cudaErrorInvalidValue;
   auto* pr = static_cast<const uint32_t*>(perm);
@@ -420,14 +616,40 @@ int ee_unsort_rows(const void* perm, const void* vals, long long B, long long P,
   auto* o = static_cast<uint32_t*>(out);
   const int vec = P % 4 == 0 && aligned(pr) && aligned(vr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (long long row0 = 0; row0 < B; row0 += kMaxGridY) {
-    const unsigned rows = unsigned(B - row0 < kMaxGridY ? B - row0 : kMaxGridY);
-    unsort_kernel<<<dim3(unsigned(tiles_per_row(P)), rows), kThreads, 0, st>>>(pr, vr, P, row0,
-                                                                               vec, o);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if (!unsort_two_pass(P)) {
+    for (long long row0 = 0; row0 < B; row0 += kMaxGridY) {
+      const unsigned rows = unsigned(B - row0 < kMaxGridY ? B - row0 : kMaxGridY);
+      unsort_kernel<<<dim3(unsigned(tiles_per_row(P)), rows), kThreads, 0, st>>>(pr, vr, P, row0,
+                                                                                 vec, o);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    return 0;
   }
-  return 0;
+  const int nb = int(unsort_buckets(P));
+  const long long nt = (P + kPartTile - 1) / kPartTile;
+  if (B * nt >= (1LL << 31) || B * nb >= (1LL << 31)) return cudaErrorInvalidValue;
+  int* cursors = static_cast<int*>(scratch);
+  auto* st_val = reinterpret_cast<uint32_t*>(cursors + B * nb);
+  auto* st_off = reinterpret_cast<uint16_t*>(st_val + B * P);
+  if ((err = cudaMemsetAsync(cursors, 0, size_t(B * nb) * sizeof(int), st)) != cudaSuccess)
+    return err;
+  const int part_smem = kPartTile * 6 + 3 * nb * int(sizeof(int));
+  if ((err = cudaFuncSetAttribute(unsort_partition_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, part_smem)) !=
+      cudaSuccess)
+    return err;
+  unsort_partition_kernel<<<unsigned(B * nt), kPartThreads, part_smem, st>>>(
+      pr, vr, P, int(nt), nb, vec, cursors, st_val, st_off);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int place_smem = kUnsortW * int(sizeof(uint32_t));
+  if ((err = cudaFuncSetAttribute(unsort_place_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, place_smem)) !=
+      cudaSuccess)
+    return err;
+  unsort_place_kernel<<<unsigned(B * nb), kPlaceThreads, place_smem, st>>>(
+      cursors, st_val, st_off, P, nb, P % 4 == 0 && aligned(o), o);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

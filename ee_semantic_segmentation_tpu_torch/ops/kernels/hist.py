@@ -55,7 +55,7 @@ def _bucket_ids(errors, emax, inv_w, bins: int) -> torch.Tensor:
 
 
 def max_kernel_bins() -> int:
-    """The most buckets the CUDA kernels take (kernel E keeps 16 bytes per
+    """The most buckets the CUDA kernels take (kernel E keeps 24 bytes per
     bucket in a block's shared memory)."""
     return _build.load_library().ee_hist_max_bins()
 
@@ -87,7 +87,7 @@ def _check(errors, fg, emax, inv_w, bins: int, tables=None) -> None:
         raise ValueError(f"errors on {errors.device}: the kernels take CUDA tensors")
     if bins > max_kernel_bins():
         raise ValueError(f"hist bins {bins} > {max_kernel_bins()}, the most the CUDA kernels "
-                         "take (kernel E keeps 16 bytes per bucket in a block's shared memory)")
+                         "take (kernel E keeps 24 bytes per bucket in a block's shared memory)")
     if errors.ndim != 2:
         raise ValueError(f"errors must be (rows, P), got {tuple(errors.shape)}")
     rows = errors.shape[0]
@@ -120,15 +120,16 @@ def hist2d_weighted(errors: torch.Tensor, fg: torch.Tensor, emax: torch.Tensor,
         return hist2d_weighted_plain(errors, fg, emax, inv_w, bins=bins)
     _check(errors, fg, emax, inv_w, bins)
     rows, P = errors.shape
-    out = torch.zeros((rows, 4, bins), dtype=torch.float32, device=errors.device)
     if rows == 0 or P == 0:
-        return out
-    counts = torch.zeros((rows, 2, bins), dtype=torch.int32, device=errors.device)
+        return torch.zeros((rows, 4, bins), dtype=torch.float32, device=errors.device)
+    out = torch.empty((rows, 4, bins), dtype=torch.float32, device=errors.device)
     lib = _build.load_library()
+    scratch = torch.empty(lib.ee_hist_scratch_words(rows, bins), dtype=torch.int32,
+                          device=errors.device)
     with torch.cuda.device(errors.device):
         err = lib.ee_hist2d_weighted(
             errors.data_ptr(), fg.data_ptr(), emax.data_ptr(), inv_w.data_ptr(), rows, P, bins,
-            _chunk(bins, 1 << 16, 64), counts.data_ptr(), out.data_ptr(),
+            _chunk(bins, 1 << 16, 64), scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "hist2d_weighted")
     hist2d_weighted.launches += 1

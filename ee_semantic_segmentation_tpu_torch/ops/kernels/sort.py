@@ -18,14 +18,17 @@ in pixel order in its backward pass (``ops/lovasz.py``):
   0..P - 1 and (B, P) 32-bit ``vals`` (moved as raw bits).  Under that
   contract it equals ``sort_rows(perm, vals)[1]``, the JAX package's
   unsort-by-sort, bit for bit.  The contract is not checked (that would
-  cost a pass): on CUDA an index outside [0, P) is dropped, and a slot that
-  no index names keeps whatever the new tensor held.
+  cost a pass): on CUDA an index outside [0, P) is dropped, a slot that no
+  index names holds an unspecified value, and nothing is written outside
+  the output.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (``sort_rows_plain``: ``torch.sort(stable=True)`` plus
 ``torch.gather``; ``unsort_rows_plain``: one ``scatter_``), a CUDA tensor
 launches the kernels of ``csrc/sort_rows.cu`` (a stable LSD radix sort;
-a one-pass scatter) or raises.  Every P >= 1 takes the kernels.
+a two-pass scatter through a staging copy bucketed by the destination's
+window, or for rows of more than 4096 windows a one-pass scatter) or
+raises.  Every P >= 1 takes the kernels.
 
 Each wrapper counts its calls that launch in ``<wrapper>.launches``.
 """
@@ -50,6 +53,12 @@ def sort_rows_plain(key: torch.Tensor, pay: torch.Tensor):
 def unsort_rows_plain(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`unsort_rows`, any dtypes and devices."""
     return torch.empty_like(vals).scatter_(-1, perm.long(), vals)
+
+
+def unsort_window() -> int:
+    """Elements of a window of the two-pass unsort: a row of more than
+    4096 windows takes the one-pass scatter."""
+    return _build.load_library().ee_unsort_window()
 
 
 def _check(key: torch.Tensor, pay: torch.Tensor, key_types=_KEY_TYPES) -> None:
@@ -102,9 +111,11 @@ def unsort_rows(perm: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     if B == 0 or P == 0:
         return out
     lib = _build.load_library()
+    scratch = torch.empty(lib.ee_unsort_scratch_words(B, P), dtype=torch.int32,
+                          device=perm.device)
     with torch.cuda.device(perm.device):
         err = lib.ee_unsort_rows(perm.data_ptr(), vals.data_ptr(), B, P, out.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
+                                 scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "unsort_rows")
     unsort_rows.launches += 1
     return out

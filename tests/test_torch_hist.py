@@ -42,6 +42,26 @@ def _rows(R, P, bins, seed=0, void=0.1):
     return errors, fg, valid, emax.numpy(), inv_w.numpy()
 
 
+# the Lovász-like error laws of chip_smoke.py phase 3c: (logit offset, logit
+# scale) of the foreground probability p = sigmoid(offset + scale * z); a
+# background pixel's error is p, a foreground pixel's 1 - p.  Most of a row
+# lands in a few buckets ("trained": ~88 % in one).
+LOVASZ_LAWS = {"random_init": (-3.0, 0.5), "trained": (-9.0, 1.0)}
+
+
+def _lovasz_rows(R, P, bins, law, seed=0):
+    """(R, P) float32 errors of ``law`` with 15 % void slots and fg on ~10 %
+    of the valid pixels, and the rows' (emax, inv_w)."""
+    rng = np.random.RandomState(seed)
+    offset, scale = LOVASZ_LAWS[law]
+    valid = rng.rand(R, P) >= 0.15
+    fg = (rng.rand(R, P) < 0.1) & valid
+    p = 1 / (1 + np.exp(-(offset + scale * rng.randn(R, P))))
+    errors = np.where(valid, np.where(fg, 1 - p, p), -1e30).astype(np.float32)
+    emax, inv_w = TL._hist_prepass(torch.from_numpy(errors), torch.from_numpy(valid), bins)
+    return errors, fg, valid, emax.numpy(), inv_w.numpy()
+
+
 def _jax_args(errors, fg, emax, inv_w):
     return (jnp.asarray(errors), jnp.asarray(fg.astype(np.float32)), jnp.asarray(emax),
             jnp.asarray(inv_w))
@@ -90,6 +110,43 @@ def test_lookup_plain_matches_jax(pallas, bins):
     got = TH.table_lookup(*_port_args(errors, fg, emax, inv_w), torch.from_numpy(tables),
                           bins=bins).numpy()
     assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("law", list(LOVASZ_LAWS))
+def test_hist_plain_matches_jax_on_lovasz_like_errors(law, pallas):
+    """Clustered errors, as a -G step's: the counts exactly, the sums of the
+    few crowded buckets (up to ~6800 terms a bucket for "trained") within
+    the reordered float32 sum's rounding, against the JAX scatter and the
+    JAX Pallas kernel (interpret; several 4096-pixel chunks, the last one
+    ragged)."""
+    errors, fg, _, emax, inv_w = _lovasz_rows(3, 9000, 128, law, seed=len(law))
+    args = _jax_args(errors, fg, emax, inv_w)
+    if pallas:
+        want = np.asarray(JH.hist2d_weighted_pallas(*args, bins=128, interpret=True))
+    else:
+        want = np.asarray(JH.hist2d_weighted_jnp(*args, bins=128))
+    got = TH.hist2d_weighted(*_port_args(errors, fg, emax, inv_w), bins=128).numpy()
+    fullest_share = got[:, 0].max(-1) / got[:, 0].sum(-1)
+    assert fullest_share.min() > (0.6 if law == "trained" else 0.0)
+    _assert_hist_close(got, want, PALLAS_RTOL if pallas else SUM_RTOL)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("law", list(LOVASZ_LAWS))
+def test_lookup_plain_matches_jax_on_lovasz_like_errors(law, pallas):
+    """Bit for bit on clustered errors too."""
+    bins = 256
+    errors, fg, _, emax, inv_w = _lovasz_rows(3, 4500, bins, law, seed=bins + len(law))
+    tables = np.random.RandomState(2).randn(3, 2, bins).astype(np.float32)
+    args = _jax_args(errors, fg, emax, inv_w) + (jnp.asarray(tables),)
+    if pallas:
+        want = np.asarray(JH.table_lookup_pallas(*args, bins=bins, interpret=True))
+    else:
+        want = np.asarray(JH.table_lookup_jnp(*args, bins=bins))
+    got = TH.table_lookup(*_port_args(errors, fg, emax, inv_w), torch.from_numpy(tables),
+                          bins=bins).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -275,5 +332,6 @@ def test_build_compiles_the_hist_source_with_plain_c_entry_points(tmp_path, monk
     with pytest.raises(RuntimeError, match="nvcc not found") as err:
         _build.build(tmp_path)
     assert "hist_lovasz.cu" in str(err.value)
-    for name in ("ee_hist2d_weighted", "ee_table_lookup", "ee_hist_max_bins"):
+    for name in ("ee_hist2d_weighted", "ee_table_lookup", "ee_hist_max_bins",
+                 "ee_hist_scratch_words"):
         assert name in _build._SIGNATURES

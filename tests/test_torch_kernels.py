@@ -22,6 +22,8 @@ from ee_semantic_segmentation_tpu_torch.ops import metrics as tmetrics
 from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
 from ee_semantic_segmentation_tpu_torch.ops.kernels import upsample_argmax as TU
 
+import kernel_variants
+
 # the JAX package's ops/pallas/__init__ re-exports functions under the
 # submodule's name, so fetch the module itself
 JU = importlib.import_module("ee_semantic_segmentation_tpu.ops.pallas.upsample_argmax")
@@ -162,3 +164,22 @@ def test_pixel_entropy_handles_zero_probabilities():
     want = np.asarray(jgating.pixel_entropy(jnp.asarray(p), 3))
     got = tgating.pixel_entropy(torch.from_numpy(p), 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------------ kernel_variants.py
+@pytest.mark.parametrize("name", list(kernel_variants.VARIANTS))
+def test_kernel_variants_apply_to_the_shipped_sources(name):
+    """Each variant of the shipped kernels names text that is in their
+    sources, once; the float-sum design's variants are for an earlier
+    tree's sources (``--csrc``) and name none of the shipped text."""
+    src, subs = kernel_variants.VARIANTS[name]
+    text = (_build.CSRC / src).read_text()
+    counts = [text.count(old) for old, _ in subs]
+    if "float-sum design" in name:
+        assert not all(counts)
+    else:
+        assert counts == [1] * len(subs)
+
+
+def test_kernel_variants_needs_a_card():
+    assert kernel_variants.main([]) == 1

@@ -364,11 +364,12 @@ def _port_modules():
 
 
 def test_port_never_imports_jax_at_run_time():
-    """Import every module of the port (and chip_smoke) in a fresh process:
-    neither jax, flax nor any module of the JAX package may load."""
+    """Import every module of the port (and chip_smoke, kernel_variants) in
+    a fresh process: neither jax, flax nor any module of the JAX package may
+    load."""
     code = (
         "import importlib, sys\n"
-        f"for m in {list(_port_modules())!r} + ['chip_smoke']:\n"
+        f"for m in {list(_port_modules())!r} + ['chip_smoke', 'kernel_variants']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ee_semantic_segmentation_tpu'))\n"
@@ -382,7 +383,7 @@ def test_port_never_imports_jax_at_run_time():
 
 def test_port_sources_name_no_jax_import():
     """Statically, including imports inside functions (chip_smoke's)."""
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "kernel_variants.py"]
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Import):

@@ -21,8 +21,14 @@ import pytest
 import torch
 
 import ee_semantic_segmentation_tpu.ops.pallas.sort_kernel as SK
+from ee_semantic_segmentation_tpu.ops import lovasz as JL
 from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
 from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as TS
+
+# the two-pass unsort's window (csrc/sort_rows.cu kUnsortLogW): its bucket
+# edges are where a row's last window is short, full or one element long
+_UNSORT_W = 1 << int(re.search(r"constexpr int kUnsortLogW = (\d+);",
+                               (_build.CSRC / "sort_rows.cu").read_text()).group(1))
 
 
 def _run_port(key: np.ndarray, pay: np.ndarray):
@@ -172,11 +178,16 @@ def _values(rng, B, P, dtype):
 @pytest.mark.parametrize("B,P,dtype", [
     (3, 1024, np.float32), (2, 2 * 67 * 101, np.float32), (4, 1000, np.int32),
     (3, 4097, np.int32), (1, 1, np.float32),
+    # the two-pass unsort's bucket edges
+    (2, _UNSORT_W - 1, np.float32), (2, _UNSORT_W, np.float32), (2, _UNSORT_W + 1, np.int32),
+    (2, 2 * _UNSORT_W + 3, np.float32),
 ])
 def test_unsort_plain_matches_the_jax_unsort_by_sort(B, P, dtype):
     """``unsort_rows_plain`` (and the CPU ``unsort_rows``) equal the JAX
-    backward's unsort, ``jax.lax.sort((perm, vals), num_keys=1)[1]``, and
-    ``sort_rows_plain(perm, vals)[1]``, bit for bit."""
+    backward's unsort, ``jax.lax.sort((perm, vals), num_keys=1)[1]`` and
+    ``_sort2(perm, vals)[1]`` on float32 positions as the JAX Lovász
+    backward calls it, and ``sort_rows_plain(perm, vals)[1]``, bit for
+    bit."""
     rng = np.random.RandomState(B * P)
     perm, vals = _perms(rng, B, P), _values(rng, B, P, dtype)
     want = np.asarray(jax.lax.sort((jnp.asarray(perm), jnp.asarray(vals)), num_keys=1)[1])
@@ -185,6 +196,9 @@ def test_unsort_plain_matches_the_jax_unsort_by_sort(B, P, dtype):
     np.testing.assert_array_equal(bits(TS.unsort_rows_plain(pt, vt).numpy()), bits(want))
     np.testing.assert_array_equal(bits(TS.unsort_rows(pt, vt).numpy()), bits(want))
     np.testing.assert_array_equal(bits(TS.sort_rows_plain(pt, vt)[1].numpy()), bits(want))
+    for b in range(B):
+        jax_row = JL._sort2(jnp.asarray(perm[b].astype(np.float32)), jnp.asarray(vals[b]))[1]
+        np.testing.assert_array_equal(bits(jax_row), bits(want[b]))
 
 
 def test_unsort_inverts_the_sort_payload_permutation():
@@ -215,8 +229,21 @@ def test_build_compiles_the_sort_source_with_plain_c_entry_points(tmp_path, monk
     with pytest.raises(RuntimeError, match="nvcc not found") as err:
         _build.build(tmp_path)
     assert "sort_rows.cu" in str(err.value)
-    for name in ("ee_sort_rows", "ee_unsort_rows", "ee_sort_aux_words"):
+    for name in ("ee_sort_rows", "ee_unsort_rows", "ee_sort_aux_words", "ee_unsort_scratch_words",
+                 "ee_unsort_window"):
         assert name in _build._SIGNATURES
+
+
+def test_unsort_window_is_the_library_s(monkeypatch):
+    """``unsort_window`` reads the window from the built library (the CUDA
+    build needs nvcc, so a stand-in library answers here), and the source
+    keeps it a power of two that 16-bit offsets address."""
+    class Lib:
+        ee_unsort_window = staticmethod(lambda: _UNSORT_W)
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib)
+    assert TS.unsort_window() == _UNSORT_W
+    assert _UNSORT_W & (_UNSORT_W - 1) == 0 and 2 <= _UNSORT_W <= 1 << 16
 
 
 def test_every_declared_entry_point_is_defined_with_as_many_arguments():
