@@ -7,12 +7,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 Phases, in order; any failed check raises and the script exits non-zero:
 
-1. environment: torch/CUDA/nvcc versions and the card's name and power limit;
+1. environment: torch/CUDA/nvcc versions, the card's name and power limit
+   and its maximum SM clock (the SFU term of kernel B's bound);
 2. build: compile the CUDA kernels from ``csrc/`` with nvcc;
 3. kernel vs plain version on the card (TF32 off), at the flagship eval
    shape (N=16, 64x64 -> 512x512, C=21) and a ragged one: argmax maps of
    kernels B and C, confusion counts and entropies must agree; kernel,
    plain and library times are medians of 20 runs timed with CUDA events;
+   then kernel B alone at its edge cases (40 classes, bf16 logits, H not a
+   multiple of its band, W not a multiple of 4, no resize, column tiles);
 3b. the sort kernel D vs its plain version (TF32 off) at the flagship's
    Lovász row shapes (63 rows of 2^22, 1008 of 2^18), one and two tiles,
    1024, a ragged row, heavy ties, +-0/+-NaN/+-inf/+-1e30 keys, int32 keys
@@ -33,21 +36,26 @@ Phases, in order; any failed check raises and the script exits non-zero:
    flagship's ``-G 1024`` row shapes (63 rows of 2^22, 1008 of 2^18) on
    uniform errors and on two Lovász-like error laws (``LOVASZ_LAWS``: a
    random-init and a trained model's errors, crowded in a few buckets), a
-   ragged row with 128 and with the largest supported bins, an all-void
-   and an all-tied row: E's counts must equal the plain version's exactly,
+   ragged row with 128, 8192, 16384, 32768 and 65536 bins, the three laws
+   at 63 rows of 2^22 with 16384 and 65536 bins (above the 8192 buckets one
+   block of E keeps), an all-void and an all-tied row: E's counts must
+   equal the plain version's exactly,
    its error sums agree within TOL_HIST_SUM_RTOL with the same sums in
    float64, F's output must equal the plain version's bit for bit; kernel,
    plain, library and bound times and one E call split per CUDA kernel at
-   the six flagship cases; then the ``-G 1024`` multi-exit Lovász value
-   and gradient with the kernels vs with the plain versions on
-   flagship-shaped logits (3, 16, 512, 512, 21);
+   the six flagship cases and at 16384 bins (kernel times at 65536); then
+   the ``-G 1024`` and ``-G 16384`` multi-exit Lovász values and gradients
+   with the kernels vs with the plain versions on flagship-shaped logits
+   (3, 16, 512, 512, 21);
 4. eval main path: the flagship branchy DeepLabV3-ResNet50 at 512² with
    seeded random weights, saved as a checkpoint and evaluated through the
    CLIs ``eval_miou``, ``eval_br_ent`` and ``eval_br_sim`` (ssim and nmi)
    with the kernel head (launch counts checked) and with the plain head
    (results must agree), and once through ``eval_br_images``; the entropy
    and similarity gates also at a tau that splits the images; then the
-   eval throughput of the evaluators over the same pre-loaded batches;
+   eval throughput of the evaluators over the same pre-loaded batches,
+   and one batch of each kernel head under ``torch.profiler``: the device
+   time of kernels A, B and C inside the batch and their share of it;
 4b. training main path: the flagship trained through the CLIs
    ``main_bradeepv3`` (per-batch and per-image ``-P`` Lovász, and the
    histogram Lovász ``-G 1024``) and ``main_bradeepv3_ce`` for one epoch of
@@ -55,9 +63,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (one sort and one unsort per step for the sorted Lovász, one E and one
    F per step and no sort for ``-G``, none for CE), finite losses, the JAX package's CSV
    layouts, and each checkpoint evaluated by ``eval_miou``; then training
-   images/s over pre-loaded batches, and one more step of each Lovász loss
-   under ``torch.profiler``: the device time of the loss's kernels inside
-   the step and their share of it;
+   images/s over pre-loaded batches (``-G 16384`` too), the loss kernels'
+   launches counted over those steps (one call each a step), and one more
+   step of each Lovász loss under ``torch.profiler``: the device time of
+   the loss's kernels inside the step and their share of it;
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -84,6 +93,11 @@ PKG = "ee_semantic_segmentation_tpu_torch"
 # float32 outside the tensor cores — the kernels use FP32 FFMA only.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# exp and log run on the special-function units: 16 results a clock per SM
+# (Hopper white paper), 132 SMs, at the card's maximum SM clock as
+# nvidia-smi reports it (set in main; 1980 MHz on an H100 SXM)
+SFU_PER_CLOCK = 16 * 132
+SFU_OPS_PER_S = SFU_PER_CLOCK * 1.98e9
 C = 21
 TOL_MAP_AGREE = 0.99999    # share of argmax pixels that must agree
 TOL_ENT_RTOL = 1e-4        # entropy: float association and expf vs softmax+log
@@ -101,6 +115,7 @@ SORT_MAIN_SHAPE = "flagship per-batch 63x2^22"
 SORT_PER_IMAGE_SHAPE = "flagship per-image 1008x2^18"
 NAN_CASE = "+-0, +-NaN, +-inf, +-1e30 8x(2*67*101)"
 HIST_BINS = 1024  # -G of the training runs
+HIST_WIDE_BINS = (16384, 65536)  # above the 8192 buckets one block of kernel E keeps
 
 
 def check(cond: bool, msg: str) -> None:
@@ -132,30 +147,35 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes, ops):
-    """(least ms, what bounds it): max(bytes / HBM rate, ops / f32 rate)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+def bound(nbytes, ops, sfu_ops=0):
+    """(least ms, what bounds it): max(bytes / HBM rate, ops / f32 rate,
+    exp and log / SFU rate)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, sfu_ops / SFU_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def bounds_ms(N, h, w, H, W, count, esize):
     """Least time the card could take for each upsample kernel's work at
-    these inputs: max(bytes / HBM rate, operations / f32 rate).
+    these inputs: max(bytes / HBM rate, float32 operations / f32 rate, exp
+    and log / SFU rate).
 
     Bytes: each input read once, each output written once.  Operations
-    (float32, one per add, multiply, compare, exp or log; an FMA is two) of
-    the separable upsample: each row-interpolated value (H*w*C per image)
-    and each output value (H*W*C) takes one multiply and one FMA (3), then
-    one compare per output value for the argmax.  B adds per output value
-    a subtract, an exp, an add and an FMA (5) and per pixel a log, a divide
-    and a subtract (3).  Kernel A only touches the ``count`` valid rows; C
-    is B without the entropy."""
+    (float32, one per add, multiply or compare; an FMA is two) of the
+    separable upsample: each row-interpolated value (H*w*C per image) and
+    each output value (H*W*C) takes one multiply and one FMA (3), then one
+    compare per output value for the argmax.  B adds per output value a
+    subtract, an add and an FMA (4) and an exp, and per pixel a divide and a
+    subtract (2) and a log; the exps and logs run on the SFU, 16 a clock
+    per SM, not at the float32 rate.  Kernel A only touches the ``count``
+    valid rows; C is B without the entropy."""
     up = H * w * C * 3 + H * W * C * 3 + H * W * C
     maps_bytes = N * (h * w * C * esize + H * W * 4) + (H + W) * 16
     return {
         "A": bound(count * (h * w * C * esize + H * W * 4) + 3 * C * 4 + (H + W) * 16,
                    count * up),
-        "B": bound(maps_bytes + N * 4, N * (up + H * W * C * 5 + H * W * 3)),
+        "B": bound(maps_bytes + N * 4, N * (up + H * W * C * 4 + H * W * 2),
+                   N * (H * W * C + H * W)),
         "C": bound(maps_bytes, N * up),
     }
 
@@ -222,6 +242,32 @@ def kernel_vs_plain(U, torch):
             print(f"[kernel-vs-plain] {key} at {tag}: kernel {results[key]['ms']:.4f} ms, "
                   f"plain {results[key]['plain_ms']:.4f} ms, library (interpolate+argmax) "
                   f"{lib_ms:.4f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]})")
+    # kernel B's edge cases: more classes than 32, bf16 logits, output rows
+    # that do not fill the last band, output columns that do not fill a
+    # 16-byte label store, no resize, and rows too wide for one tile of
+    # shared memory
+    b_cases = [
+        ("C=40, above 32 classes", (2, 16, 16), 40, (128, 128), torch.float32),
+        ("bf16 logits, flagship", (16, 64, 64), C, (512, 512), torch.bfloat16),
+        ("H=70, not a multiple of the band", (2, 8, 8), C, (70, 64), torch.float32),
+        ("W=66, not a multiple of 4", (2, 8, 8), C, (64, 66), torch.float32),
+        ("no resize", (2, 64, 64), C, (64, 64), torch.float32),
+        ("column tiles", (2, 8, 1024), 32, (16, 2048), torch.float32),
+    ]
+    for tag, (N, h, w), nc, (H, W), dtype in b_cases:
+        rng = np.random.RandomState(1)
+        logits = torch.from_numpy((2 * rng.randn(N, h, w, nc)).astype(np.float32)).to(
+            device="cuda", dtype=dtype)
+        maps_k, ent_k = U.upsample_entropy_argmax(logits, (H, W))
+        maps_p, ent_p = U.upsample_entropy_argmax_plain(logits, (H, W))
+        torch.cuda.synchronize()
+        agree = 1.0 - (maps_k != maps_p).float().mean().item()
+        ent_rel = float(((ent_k - ent_p).abs() / ent_p.abs()).max())
+        print(f"[kernel-vs-plain] B {tag}: N={N} {h}x{w}->{H}x{W} C={nc} {dtype}: argmax agree "
+              f"{agree:.7f} (differing pixels {int((maps_k != maps_p).sum())}); entropy rel "
+              f"{ent_rel:.3g}")
+        check(agree >= TOL_MAP_AGREE, f"B {tag}: argmax maps agree on {agree:.7f} < {TOL_MAP_AGREE}")
+        check(ent_rel <= TOL_ENT_RTOL, f"B {tag}: entropy rel err {ent_rel:.3g} > {TOL_ENT_RTOL}")
     return results
 
 
@@ -482,7 +528,7 @@ def hist_vs_plain(Hk, torch):
     from ee_semantic_segmentation_tpu_torch.ops.lovasz import _hist_prepass, _hist_tables
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    P_ragged, max_bins = 2 * 67 * 101, Hk.max_kernel_bins()
+    P_ragged, range_bins = 2 * 67 * 101, Hk.range_bins()
     cases = {  # tag: (rows, P, bins, error law)
         SORT_MAIN_SHAPE: (63, 1 << 22, HIST_BINS, None),
         SORT_PER_IMAGE_SHAPE: (1008, 1 << 18, HIST_BINS, None),
@@ -490,7 +536,13 @@ def hist_vs_plain(Hk, torch):
            for shape, (R, P) in ((SORT_MAIN_SHAPE, (63, 1 << 22)),
                                  (SORT_PER_IMAGE_SHAPE, (1008, 1 << 18)))},
         "ragged 8x(2*67*101), 128 bins": (8, P_ragged, 128, None),
-        f"ragged 8x(2*67*101), {max_bins} bins": (8, P_ragged, max_bins, None),
+        # E's one-block limit and the bucket ranges above it; F stages its
+        # table up to 16384 bins and reads it from L2 above
+        **{f"ragged 8x(2*67*101), {b} bins": (8, P_ragged, b, None)
+           for b in (range_bins, 2 * range_bins, 4 * range_bins, *HIST_WIDE_BINS)},
+        # -G above the range at the flagship's per-batch rows, every error law
+        **{f"{SORT_MAIN_SHAPE}, {law or 'uniform'}, {b} bins": (63, 1 << 22, b, law)
+           for b in HIST_WIDE_BINS for law in (None, *LOVASZ_LAWS)},
         "4x2^20 with an all-void and an all-tied row": (4, 1 << 20, HIST_BINS, None),
     }
     results = {}
@@ -529,7 +581,14 @@ def hist_vs_plain(Hk, torch):
             check(not hk[1].any() and not wk[1].any(), "the all-void row is not all zero")
             check(int(hk[2, 0, 0]) == P and not hk[2, 0, 1:].any(),
                   "the all-tied row is not in one bucket")
-        if tag.startswith("flagship"):
+        if tag.startswith("flagship") and bins == HIST_WIDE_BINS[-1]:
+            ms = {k: median_ms(fn, 5, 1) for k, fn in (
+                ("E", lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins)),
+                ("F", lambda: Hk.table_lookup(errors, fg, emax, inv_w, tables, bins=bins)))}
+            results["E", tag], results["F", tag] = {"ms": ms["E"]}, {"ms": ms["F"]}
+            print(f"[hist-vs-plain] at {tag}: E {ms['E']:.3f} ms, F {ms['F']:.3f} ms "
+                  f"(kernels only)")
+        elif tag.startswith("flagship"):
             idx = ((emax[:, None] - errors) * inv_w[:, None]).clamp(0, bins - 1).long()
             fgv = fg & valid
             idx4 = (idx[:, None, :] + bins * torch.arange(4, device="cuda")[None, :, None])
@@ -559,7 +618,8 @@ def hist_vs_plain(Hk, torch):
                     ms=median_ms(fn), plain_ms=median_ms(plain, slow, 1),
                     library_ms=median_ms(lib, slow, 1), bound_ms=bound_ms, bound_by=bound_by,
                     max_abs_err=err)
-                print(f"[hist-vs-plain] {key} at {tag}, {bins} bins: kernel {r['ms']:.3f} ms, "
+                where = tag if "bins" in tag else f"{tag}, {bins} bins"
+                print(f"[hist-vs-plain] {key} at {where}: kernel {r['ms']:.3f} ms, "
                       f"plain {r['plain_ms']:.3f} ms, library "
                       f"({'scatter_add_' if key == 'E' else 'gather'} over precomputed bucket "
                       f"ids) {r['library_ms']:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
@@ -569,38 +629,37 @@ def hist_vs_plain(Hk, torch):
             del idx, fgv, idx4, src4, idx2, tab2
         del errors, fg, valid, hk, hp, wk, wp, tables, s64
         torch.cuda.empty_cache()
-    errors, fg, valid = hist_rows(2, 1000, g, torch)
-    try:
-        Hk.hist2d_weighted(errors, fg, *_hist_prepass(errors, valid, 2 * max_bins), bins=2 * max_bins)
-    except ValueError as err:
-        print(f"[hist-vs-plain] {2 * max_bins} bins raise: {err}")
-    else:
-        check(False, f"hist2d_weighted took {2 * max_bins} bins, above its limit {max_bins}")
+    for b in HIST_WIDE_BINS[:1]:
+        uniform = results["E", f"{SORT_MAIN_SHAPE}, uniform, {b} bins"]["ms"]
+        print(f"[hist-vs-plain] E at {b} bins, 63x2^22: "
+              + ", ".join(f"{law} / uniform {results['E', f'{SORT_MAIN_SHAPE}, {law}, {b} bins']['ms'] / uniform:.3f}"
+                          for law in LOVASZ_LAWS))
     return results
 
 
 def hist_lovasz_kernel_vs_plain(Hk, torch):
-    """Phase 3c, end: the -G 1024 multi-exit Lovász value and gradient with
-    kernels E and F against the same function with their plain versions,
-    on flagship-shaped logits with 15 % void labels, per-batch and
-    per-image.  The gradient depends on the exact counts only: equal."""
+    """Phase 3c, end: the -G 1024 and -G 16384 multi-exit Lovász value and
+    gradient with kernels E and F against the same function with their
+    plain versions, on flagship-shaped logits with 15 % void labels,
+    per-batch and per-image.  The gradient depends on the exact counts
+    only: equal."""
     from ee_semantic_segmentation_tpu_torch.ops.lovasz import _lovasz_exits
 
     g = torch.Generator(device="cuda").manual_seed(1)
     logits = 3 * torch.randn(3, 16, 512, 512, C, device="cuda", generator=g)
     labels = torch.randint(0, C, (16, 512, 512), device="cuda", generator=g, dtype=torch.int32)
     labels[torch.rand(16, 512, 512, device="cuda", generator=g) < 0.15] = C  # void
-    for per_image in (False, True):
+    for bins, per_image in ((b, p) for b in (HIST_BINS, HIST_WIDE_BINS[0]) for p in (False, True)):
         out = {}
         for name, pair in (("kernel", Hk.KERNELS),
                            ("plain", (Hk.hist2d_weighted_plain, Hk.table_lookup_plain))):
             x = logits.clone().requires_grad_(True)
-            loss = _lovasz_exits(x, labels, per_image=per_image, ignore=C, hist_bins=HIST_BINS,
+            loss = _lovasz_exits(x, labels, per_image=per_image, ignore=C, hist_bins=bins,
                                  hist_kernels=pair).sum()
             (grad,) = torch.autograd.grad(loss, x)
             out[name] = (loss.item(), grad)
         (lk, gk), (lp, gp) = out["kernel"], out["plain"]
-        print(f"[hist-lovasz] -G {HIST_BINS} on flagship logits (3, 16, 512, 512, {C}), "
+        print(f"[hist-lovasz] -G {bins} on flagship logits (3, 16, 512, 512, {C}), "
               f"per_image={per_image}: loss kernel {lk!r} vs plain {lp!r} (rel "
               f"{abs(lk - lp) / abs(lp):.3g}); gradient equal {bool(torch.equal(gk, gp))}, "
               f"max|grad| {float(gp.abs().max()):.3g}")
@@ -699,6 +758,8 @@ def training_throughput(torch):
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
     from ee_semantic_segmentation_tpu_torch.ops.branchy import LovaszSoftmax
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import hist as Hk
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as S
     from ee_semantic_segmentation_tpu_torch.ops.xentropy import BrXEntropyLoss
     from ee_semantic_segmentation_tpu_torch.parallel.train_step import make_train_step
     from ee_semantic_segmentation_tpu_torch.train.optim import (
@@ -715,6 +776,9 @@ def training_throughput(torch):
         "hist_lovasz": LovaszSoftmax(ignore=C, n_branches=2, hist_bins=HIST_BINS),
         "hist_lovasz_per_image": LovaszSoftmax(ignore=C, n_branches=2, per_image=True,
                                                hist_bins=HIST_BINS),
+        # -G above the 8192 buckets one block of kernel E keeps
+        f"hist_lovasz_{HIST_WIDE_BINS[0]}": LovaszSoftmax(ignore=C, n_branches=2,
+                                                          hist_bins=HIST_WIDE_BINS[0]),
         "ce": BrXEntropyLoss(ignore_index=C, b_reduction="sum", n_exits=3),
     }
     ips, share, in_step = {}, {}, {}
@@ -726,6 +790,8 @@ def training_throughput(torch):
         step = make_train_step(model, loss_fn, opt, accum_steps=TRAIN_ACCUM)
         step(*batches[0], 0.01)  # warm-up: cuDNN algorithm choice, allocator
         torch.cuda.synchronize()
+        for k in S.KERNELS + Hk.KERNELS:
+            k.launches = 0
         times = []
         for i in range(4):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -735,6 +801,11 @@ def training_throughput(torch):
             torch.cuda.synchronize()
             check(math.isfinite(float(loss)), f"{name}: train-step loss {float(loss)}")
             times.append(start.elapsed_time(end))
+        kind = "lovasz" if name.startswith("lovasz") else "hist" if name.startswith("hist") else ""
+        for k in S.KERNELS + Hk.KERNELS:  # one call of the loss's kernels a step
+            want = 4 if k in {"lovasz": S.KERNELS, "hist": Hk.KERNELS}.get(kind, ()) else 0
+            check(k.launches == want, f"{name}: {k.__name__} launched {k.launches} times in 4 "
+                                      f"steps, want {want}")
         step_ms = statistics.mean(times)
         ips[f"train {name}"] = bs / (step_ms / 1e3)
         print(f"[train-throughput] {name}: step {step_ms:.1f} ms (steps {[round(t, 1) for t in times]}), "
@@ -813,7 +884,7 @@ def main_path(U, torch):
     cfg = model.config
     check(cfg.segment_ends == (12, 15), f"flagship segment_ends {cfg.segment_ends} != (12, 15)")
     n_img, bs, tau = 16, 12, 0.5  # synthetic test split: 16 images, 2nd batch count=4
-    launches, rows, ips = {}, {}, {}
+    launches, rows, ips, in_step = {}, {}, {}, {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = save_checkpoint(tmp, "flagship", model, cfg)
@@ -874,6 +945,27 @@ def main_path(U, torch):
                 ips[name] = n_img / (time.perf_counter() - t0)
                 print(f"[main-path] {name}: {ips[name]:.2f} images/s "
                       f"({n_img} images at 512x512, batch {bs}, evaluator over pre-loaded batches)")
+
+            # each head kernel inside one batch of its evaluator (torch.profiler;
+            # 3 exits, so 3 launches), beside the batch's time (CUDA events)
+            one = batches[:1]
+            for key, name, fn, starts in (
+                ("A", "eval_miou", lambda: mIoU_evaluator_fused(
+                    model, 3, C, one, step=make_kernel_miou_step_fn(model, C)),
+                 ("up_argmax_conf_kernel",)),
+                ("B", "eval_br_ent", lambda: br_evaluator_entropy_fused(
+                    model, 3, C, one, tau, pallas_head=True),
+                 ("up_ent_argmax_kernel", "ent_finalize_kernel")),
+                ("C", "eval_br_sim", lambda: br_evaluator_similarity_fused(
+                    model, 3, C, one, "ssim", tau, ignore=(C - 1,), pallas_head=True),
+                 ("up_argmax_kernel",)),
+            ):
+                batch_ms = median_ms(fn, 5, 1)
+                n, ms = kernels_of(per_kernel_ms(fn, torch, {starts[0]: 3}), starts)
+                in_step[key] = ms
+                print(f"[eval-profile] {name} kernel head, one batch of {bs} at 512x512: kernel "
+                      f"{key} ({', '.join(starts)}: {n} CUDA launches) {ms:.4f} ms of device time "
+                      f"= {100 * ms / batch_ms:.3f} % of the {batch_ms:.2f} ms batch")
 
             # tau 0.5 sends every image of the random model to the final
             # head; a tau in the widest gap between two first-exit entropies
@@ -943,7 +1035,7 @@ def main_path(U, torch):
         if (key, "kernel") in rows:
             check_same_row(f"{key}, kernel head vs plain head:", rows[key, "kernel"][0],
                            rows[key, "plain"][0])
-    return launches, ips
+    return launches, ips, in_step
 
 
 KERNEL_INFO = (
@@ -981,6 +1073,11 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {nvcc_version}, {torch.cuda.get_device_name(0)}")
     print(card.splitlines()[0])
+    global SFU_OPS_PER_S
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    SFU_OPS_PER_S = SFU_PER_CLOCK * mhz * 1e6
+    print(f"[env] max SM clock {mhz:g} MHz: {SFU_OPS_PER_S:.4g} exp/log a second on the SFUs")
 
     # ---------------------------------------------------------------- phase 2
     t0 = time.perf_counter()
@@ -1008,7 +1105,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True
 
     # ---------------------------------------------------------------- phase 4
-    launches, ips = main_path(U, torch)
+    launches, ips, eval_in_step = main_path(U, torch)
 
     # --------------------------------------------------------------- phase 4b
     launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
@@ -1024,7 +1121,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "kernel_ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"],
+            "library_ms": m["library_ms"], "in_step_ms": eval_in_step[key],
         })
     for name, by_shape in sort_measured.items():
         m = by_shape[SORT_MAIN_SHAPE]  # the -P row shape, beside the default's
@@ -1058,7 +1155,14 @@ def main() -> int:
                                 for law in LOVASZ_LAWS
                                 for shape in (SORT_MAIN_SHAPE, SORT_PER_IMAGE_SHAPE)},
             "in_step_ms": {loss: in_step[loss][name]
-                           for loss in ("hist_lovasz", "hist_lovasz_per_image")},
+                           for loss in ("hist_lovasz", "hist_lovasz_per_image",
+                                        f"hist_lovasz_{HIST_WIDE_BINS[0]}")},
+            "ms_above_range": {f"{b} bins, {law or 'uniform'}":
+                               hist_measured[key, f"{SORT_MAIN_SHAPE}, {law or 'uniform'}, {b} bins"]["ms"]
+                               for b in HIST_WIDE_BINS for law in (None, *LOVASZ_LAWS)},
+            f"{HIST_WIDE_BINS[0]}_bins": {
+                k: v for k, v in hist_measured[key, f"{SORT_MAIN_SHAPE}, uniform, {HIST_WIDE_BINS[0]} bins"].items()
+                if k.endswith("ms")},
         })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
                       "train_images_per_s": train_ips,

@@ -33,6 +33,8 @@ _SIGNATURES = {
     # count, h, w, C, H, W, counts, stream
     "ee_upsample_argmax_confusion": (
         [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+    # h, w, C, H, W -> partials a image of ee_upsample_entropy_argmax
+    "ee_ent_partials_per_image": ([_I, _I, _I, _I, _I], _I),
     # logits, is_bf16, row_idx, row_w, col_idx, col_w,
     # N, h, w, C, H, W, inv_norm, labels_out, partial, ent_out, stream
     "ee_upsample_entropy_argmax": (
@@ -48,13 +50,13 @@ _SIGNATURES = {
     "ee_unsort_scratch_words": ([_L, _L], _L),
     # perm, vals, B, P, out, scratch, stream
     "ee_unsort_rows": ([_P, _P, _L, _L, _P, _P, _P], _I),
-    "ee_hist_max_bins": ([], _I),
+    "ee_hist_range_bins": ([], _I),
     # rows, bins -> int32 words of ee_hist2d_weighted's scratch
-    "ee_hist_scratch_words": ([_L, _I], _L),
+    "ee_hist_scratch_words": ([_L, _L], _L),
     # errors, fg, emax, inv_w, rows, P, bins, chunk, scratch, out, stream
-    "ee_hist2d_weighted": ([_P, _P, _P, _P, _L, _L, _I, _L, _P, _P, _P], _I),
+    "ee_hist2d_weighted": ([_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P], _I),
     # errors, fg, emax, inv_w, tables, rows, P, bins, chunk, out, stream
-    "ee_table_lookup": ([_P, _P, _P, _P, _P, _L, _L, _I, _L, _P, _P], _I),
+    "ee_table_lookup": ([_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P], _I),
 }
 
 

@@ -18,12 +18,17 @@
 // Design.  The TPU kernel is a one-hot matrix product on the MXU with
 // per-chunk (4 * bins) partials summed in XLA; on Hopper a histogram is a
 // scatter into shared memory.
-//   E  A block takes one (row, range of `chunk` pixels, 64 * bins <= chunk
-//      < 2^20) with 16-byte error and 4-byte fg loads where 4 | P.  Each
-//      key (the bucket of a foreground pixel, or bins + the bucket of a
-//      background one) has a count, an integer sum and a float sum in
-//      dynamic shared memory (24 * bins bytes: 192 KB at bins 8192, hence
-//      the opt-in).  An error whose bucket's fixed-point scale (a power of
+//   E  A block takes one (row, range of `chunk` pixels, 64 * nb <= chunk
+//      < 2^20, nb = min(bins, 8192)) with 16-byte error and 4-byte fg loads
+//      where 4 | P.  Each key (the bucket of a foreground pixel, or nb + the
+//      bucket of a background one) has a count, an integer sum and a float
+//      sum in dynamic shared memory (24 * nb bytes: 192 KB at 8192, hence
+//      the opt-in).  Above 8192 bins the grid also runs over ranges of
+//      8192 buckets: a block keeps the keys of its range [lo, lo + 8192)
+//      only and skips its chunk's other pixels, so the shared layout, the
+//      chunk (sized by the range, not by bins) and the count words stay as
+//      they are; each range reads the errors once more (bins / 8192 reads
+//      in all; the TPU kernel's one-hot product grows with bins too).  An error whose bucket's fixed-point scale (a power of
 //      two, from the bucket's upper edge) puts it in [2^16, 2^24) adds its
 //      rounded scaled value to the integer sum (rounding <= 2^-17 of the
 //      error); any other (tiny, zero, negative or outside its bucket) adds
@@ -43,12 +48,21 @@
 //      out within ~1e-7 of a float64 sum, where a float32 sum of a crowded
 //      bucket (millions of errors) drifts by ~1e-4.
 //   F  A block stages its row's (2, bins) table in shared memory once and
-//      walks `chunk` pixels.  The output is tab * valid, as in the plain
-//      version, so signed zeros agree too.
+//      walks `chunk` pixels.  Above 16384 bins the table (8 B a bucket)
+//      outgrows a block's shared memory and the block reads it through the
+//      read-only path (__ldg) from L2 instead: a row's table is 2^19 bytes
+//      at 65536 bins.  The output is tab * valid, as in the plain version,
+//      so signed zeros agree too.
+// Above 2^24 bins float32 cannot name bucket bins - 1 (bins - 1 rounds to
+// bins), so the paths above 8192 (E) and 16384 (F) clamp the bucket id to
+// bins - 1 after the conversion, which changes nothing below 2^24; the
+// C entry points take bins up to 2^30 (one row's output and scratch are
+// then 48 GB), and the plain versions index out of range above 2^24.
 // Bound (H100 SXM, 3.35 TB/s): E reads 4 bytes of error and 1 of fg per
 // pixel, F those and writes 4: at 63 rows of 2^22, ~0.39 and ~0.71 ms.  On
 // one H100 80GB HBM3 at 700 W (PERF.md): E 0.667 ms on uniform errors,
-// 0.662 and 0.754 on clustered ones; F 0.876 ms.
+// 0.662 and 0.754 on clustered ones; F 0.876 ms.  At 16384 and 65536 bins
+// the times stand in PERF.md beside their bounds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,14 +70,25 @@
 namespace {
 
 constexpr int HIST_THREADS = 512;
+// Above kRangeBins a block's 192 KB of shared memory leaves one block an SM:
+// it takes 1024 threads, each with 4 loads in flight
+constexpr int kRangedThreads = 1024;
 constexpr int LOOKUP_THREADS = 256;
 constexpr float VALID_THRESH = -1e29f;
-constexpr int MAX_BINS = 8192;  // E: 24 * 8192 bytes of shared memory
+constexpr int kRangeBins = 8192;         // E: buckets a block keeps, 24 B each in shared memory
+constexpr int kStagedLookupBins = 16384;  // F: stages its (2, bins) table up to here, 8 B a bucket
+constexpr long long kMaxBins = 1LL << 30;
 
 __device__ __forceinline__ int bucket_id(float e, float emax, float inv_w, int bins) {
   float t = __fmul_rn(__fsub_rn(emax, e), inv_w);
   t = fminf(fmaxf(t, 0.f), (float)(bins - 1));
   return (int)t;
+}
+
+// bucket_id for any bins up to 2^30: above 2^24, (float)(bins - 1) rounds
+// up to bins, so the id is clamped once more in integers.
+__device__ __forceinline__ int bucket_id_wide(float e, float emax, float inv_w, int bins) {
+  return min(bucket_id(e, emax, inv_w, bins), bins - 1);
 }
 
 // Fixed-point scale of bucket b: 2^(24 - x) with hi < 2^x, where hi =
@@ -116,15 +141,26 @@ struct Run {
   float f = 0.f;
 };
 
+// kRanged: the block keeps the buckets [lo, lo + kRangeBins) of its row's
+// bins only (bins > kRangeBins), their keys b - lo and kRangeBins + b - lo.
+template <bool kRanged>
 struct HistRow {
   BlockHist h;
   float em, iw, w;
   int bins;
+  int lo;
 
   __device__ __forceinline__ void push(Run& r, float e, bool is_fg) const {
     if (!(e > VALID_THRESH)) return;
-    const int b = bucket_id(e, em, iw, bins);
-    const int key = is_fg ? b : bins + b;
+    int b, key;
+    if constexpr (kRanged) {
+      b = bucket_id_wide(e, em, iw, bins);
+      if ((unsigned)(b - lo) >= (unsigned)kRangeBins) return;  // another block's range
+      key = is_fg ? b - lo : kRangeBins + b - lo;
+    } else {
+      b = bucket_id(e, em, iw, bins);
+      key = is_fg ? b : bins + b;
+    }
     const float q = __fmul_rn(e, fix_scale(em, w, b));
     const bool fixed = q >= kFixLo && q < kFixHi;
     const unsigned u = fixed ? __float2uint_rn(q) : 0u;
@@ -143,24 +179,41 @@ struct HistRow {
   __device__ __forceinline__ void flush(const Run& r) const {
     if (r.n) h.add(r.key, r.n, r.u, r.f);
   }
+
+  // the four pixels of one 16-byte error load and 4-byte fg load
+  __device__ __forceinline__ void push4(const float4& e, unsigned f) const {
+    Run r;
+    push(r, e.x, f & 0xffu);
+    push(r, e.y, (f >> 8) & 0xffu);
+    push(r, e.z, (f >> 16) & 0xffu);
+    push(r, e.w, f >> 24);
+    flush(r);
+  }
 };
 
 // Kernel E, first pass.  Grid (rows, blocks per row), chunk < 2^20 pixels
-// a block.
-__global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
+// a block; kRanged (bins > kRangeBins): grid (rows * bins / kRangeBins,
+// blocks per row), block x taking range x % (bins / kRangeBins) of row
+// x / (bins / kRangeBins).
+template <bool kRanged>
+__global__ void __launch_bounds__(kRanged ? kRangedThreads : HIST_THREADS) hist_kernel(
     const float* __restrict__ err, const unsigned char* __restrict__ fg,
     const float* __restrict__ emax, const float* __restrict__ inv_w,
     long long P, int bins, long long chunk, int vec,
     unsigned long long* __restrict__ g_fix, int* __restrict__ g_cnt,
     float* __restrict__ g_fsum) {
-  extern __shared__ unsigned s_hist[];  // [3][2 * bins]: word, lo, fsum
-  const BlockHist h{s_hist, s_hist + 2 * bins, reinterpret_cast<float*>(s_hist + 4 * bins)};
-  for (int i = threadIdx.x; i < 6 * bins; i += HIST_THREADS) s_hist[i] = 0;  // 0.0f too
+  constexpr int T = kRanged ? kRangedThreads : HIST_THREADS;
+  const int nb = kRanged ? kRangeBins : bins;  // the block's buckets
+  extern __shared__ unsigned s_hist[];  // [3][2 * nb]: word, lo, fsum
+  const BlockHist h{s_hist, s_hist + 2 * nb, reinterpret_cast<float*>(s_hist + 4 * nb)};
+  for (int i = threadIdx.x; i < 6 * nb; i += T) s_hist[i] = 0;  // 0.0f too
   __syncthreads();
 
-  const long long row = blockIdx.x;
+  const int ranges = kRanged ? bins / kRangeBins : 1;
+  const long long row = kRanged ? blockIdx.x / ranges : blockIdx.x;
+  const int lo = kRanged ? int(blockIdx.x - row * ranges) * kRangeBins : 0;
   const float iw = inv_w[row];
-  const HistRow px{h, emax[row], iw, 1.f / iw, bins};
+  const HistRow<kRanged> px{h, emax[row], iw, 1.f / iw, bins, lo};
   const float* e_row = err + row * P;
   const unsigned char* f_row = fg + row * P;
   const long long start = (long long)blockIdx.y * chunk;
@@ -169,7 +222,21 @@ __global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
     const float4* e4 = reinterpret_cast<const float4*>(e_row + start);
     const unsigned* f4 = reinterpret_cast<const unsigned*>(f_row + start);
     const int n4 = int((end - start) / 4);
-    for (int v = threadIdx.x; v < n4; v += HIST_THREADS) {
+    int v = threadIdx.x;
+    if constexpr (kRanged) {  // 4 loads in flight a thread
+      for (; v + 3 * T < n4; v += 4 * T) {
+        float4 e[4];
+        unsigned f[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          e[u] = e4[v + u * T];
+          f[u] = f4[v + u * T];
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) px.push4(e[u], f[u]);
+      }
+    }
+    for (; v < n4; v += T) {
       const float4 e = e4[v];
       const unsigned f = f4[v];
       Run r;
@@ -180,7 +247,7 @@ __global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
       px.flush(r);
     }
   } else {
-    for (long long p = start + threadIdx.x; p < end; p += HIST_THREADS) {
+    for (long long p = start + threadIdx.x; p < end; p += T) {
       Run r;
       px.push(r, e_row[p], f_row[p]);
       px.flush(r);
@@ -191,13 +258,15 @@ __global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
   // the block's nonempty keys to the row's totals: counts and integer sums
   // exact (integer atomics), float sums in the atomics' order
   const long long o = row * 2 * bins;
-  for (int i = threadIdx.x; i < 2 * bins; i += HIST_THREADS) {
+  for (int i = threadIdx.x; i < 2 * nb; i += T) {
     const unsigned wd = h.word[i];
     if ((wd & kCountMask) == 0) continue;
-    atomicAdd(&g_cnt[o + i], (int)(wd & kCountMask));
+    // the row's key of block key i: fg buckets first, then bg ones
+    const long long k = o + (kRanged ? (i < nb ? lo + i : bins + lo + (i - nb)) : i);
+    atomicAdd(&g_cnt[k], (int)(wd & kCountMask));
     const unsigned long long fix = (unsigned long long)(wd >> 20) << 32 | h.lo[i];
-    if (fix) atomicAdd(&g_fix[o + i], fix);
-    if (h.fsum[i] != 0.f) atomicAdd(&g_fsum[o + i], h.fsum[i]);
+    if (fix) atomicAdd(&g_fix[k], fix);
+    if (h.fsum[i] != 0.f) atomicAdd(&g_fsum[k], h.fsum[i]);
   }
 }
 
@@ -221,14 +290,18 @@ __global__ void hist_finalize_kernel(const unsigned long long* __restrict__ g_fi
   const double fix_b = g_fix[kb] ? (double)g_fix[kb] / scale : 0.0;
   const double s_f = fix_f + (double)g_fsum[kf];
   const double s_b = fix_b + (double)g_fsum[kb];
-  float* o = out + row * 4 * bins + b;
+  const long long B = bins;
+  float* o = out + row * 4 * B + b;
   o[0] = (float)(g_cnt[kf] + g_cnt[kb]);
-  o[bins] = (float)g_cnt[kf];
-  o[2 * bins] = (float)(s_f + s_b);
-  o[3 * bins] = (float)s_f;
+  o[B] = (float)g_cnt[kf];
+  o[2 * B] = (float)(s_f + s_b);
+  o[3 * B] = (float)s_f;
 }
 
-// Kernel F.  Grid (rows, blocks per row).
+// Kernel F.  Grid (rows, blocks per row).  kStaged (bins <=
+// kStagedLookupBins): the row's table in shared memory; otherwise read
+// through the read-only path from L2.
+template <bool kStaged>
 __global__ void __launch_bounds__(LOOKUP_THREADS) lookup_kernel(
     const float* __restrict__ err, const unsigned char* __restrict__ fg,
     const float* __restrict__ emax, const float* __restrict__ inv_w,
@@ -237,8 +310,10 @@ __global__ void __launch_bounds__(LOOKUP_THREADS) lookup_kernel(
   extern __shared__ float tab[];  // [2][bins]: fg weights, then bg weights
   const long long row = blockIdx.x;
   const float* t_row = tables + row * 2 * bins;
-  for (int i = threadIdx.x; i < 2 * bins; i += LOOKUP_THREADS) tab[i] = t_row[i];
-  __syncthreads();
+  if constexpr (kStaged) {
+    for (int i = threadIdx.x; i < 2 * bins; i += LOOKUP_THREADS) tab[i] = t_row[i];
+    __syncthreads();
+  }
 
   const float em = emax[row];
   const float iw = inv_w[row];
@@ -250,8 +325,13 @@ __global__ void __launch_bounds__(LOOKUP_THREADS) lookup_kernel(
   for (long long p = start + threadIdx.x; p < end; p += LOOKUP_THREADS) {
     const float e = e_row[p];
     const float valid = e > VALID_THRESH ? 1.f : 0.f;
-    const int b = bucket_id(e, em, iw, bins);
-    o_row[p] = tab[f_row[p] ? b : bins + b] * valid;
+    if constexpr (kStaged) {
+      const int b = bucket_id(e, em, iw, bins);
+      o_row[p] = tab[f_row[p] ? b : bins + b] * valid;
+    } else {
+      const int b = bucket_id_wide(e, em, iw, bins);
+      o_row[p] = __ldg(&t_row[f_row[p] ? b : bins + b]) * valid;
+    }
   }
 }
 
@@ -266,26 +346,32 @@ int grid_of(long long rows, long long P, long long chunk, dim3* grid) {
 
 extern "C" {
 
-int ee_hist_max_bins() { return MAX_BINS; }
+// The most buckets one block of kernel E keeps (a range): above it E takes
+// the buckets in ranges of this many.
+int ee_hist_range_bins() { return kRangeBins; }
 
 // int32 words of the scratch that ee_hist2d_weighted needs for rows of
 // `bins` buckets: per (row, fg/bg, bucket) an integer sum, a count and a
 // float sum.
-long long ee_hist_scratch_words(long long rows, int bins) { return rows * 2 * bins * 4; }
+long long ee_hist_scratch_words(long long rows, long long bins) { return rows * 2 * bins * 4; }
 
 // errors (rows, P) f32, fg (rows, P) uint8 (nonzero = foreground), emax and
-// inv_w (rows,) f32 -> out (rows, 4, bins) f32.  chunk: pixels a block, a
-// multiple of 4 below 2^20.  scratch holds ee_hist_scratch_words(rows, bins)
-// int32.  Returns the first launch error.
+// inv_w (rows,) f32 -> out (rows, 4, bins) f32; bins up to 2^30, a multiple
+// of ee_hist_range_bins() above it.  chunk: pixels a block, a multiple of 4
+// below 2^20.  scratch holds ee_hist_scratch_words(rows, bins) int32.
+// Returns the first launch error.
 int ee_hist2d_weighted(const void* errors, const void* fg, const void* emax,
-                       const void* inv_w, long long rows, long long P, int bins,
+                       const void* inv_w, long long rows, long long P, long long bins,
                        long long chunk, void* scratch, void* out, void* stream) {
   dim3 grid;
-  if (bins < 1 || bins > MAX_BINS || chunk < 4 || chunk % 4 || chunk >= (1LL << 20) ||
-      !grid_of(rows, P, chunk, &grid))
+  const bool ranged = bins > kRangeBins;
+  const long long ranges = ranged ? bins / kRangeBins : 1;
+  if (bins < 1 || bins > kMaxBins || (ranged && bins % kRangeBins) || chunk < 4 || chunk % 4 ||
+      chunk >= (1LL << 20) || rows > 0x7fffffffLL || !grid_of(rows * ranges, P, chunk, &grid))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 24 * (size_t)bins;  // 12 bytes a key
-  cudaError_t err = cudaFuncSetAttribute(hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = 24 * (size_t)(ranged ? kRangeBins : bins);  // 12 bytes a key
+  auto* kernel = ranged ? hist_kernel<true> : hist_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
@@ -296,34 +382,36 @@ int ee_hist2d_weighted(const void* errors, const void* fg, const void* emax,
   if ((err = cudaMemsetAsync(scratch, 0, (size_t)keys * 16, s)) != cudaSuccess) return (int)err;
   const int vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(errors) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(fg) % 4 == 0;
-  hist_kernel<<<grid, HIST_THREADS, smem, s>>>(
+  kernel<<<grid, ranged ? kRangedThreads : HIST_THREADS, smem, s>>>(
       (const float*)errors, (const unsigned char*)fg, (const float*)emax, (const float*)inv_w,
-      P, bins, chunk, vec, g_fix, g_cnt, g_fsum);
+      P, (int)bins, chunk, vec, g_fix, g_cnt, g_fsum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (rows * bins + 255) / 256;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   hist_finalize_kernel<<<(unsigned)blocks, 256, 0, s>>>(g_fix, g_cnt, g_fsum, (const float*)emax,
-                                                        (const float*)inv_w, rows, bins,
+                                                        (const float*)inv_w, rows, (int)bins,
                                                         (float*)out);
   return (int)cudaGetLastError();
 }
 
 // errors, fg, emax, inv_w as above; tables (rows, 2, bins) f32 -> out
-// (rows, P) f32.  Returns cudaGetLastError().
+// (rows, P) f32; bins up to 2^30.  Returns cudaGetLastError().
 int ee_table_lookup(const void* errors, const void* fg, const void* emax, const void* inv_w,
-                    const void* tables, long long rows, long long P, int bins, long long chunk,
-                    void* out, void* stream) {
+                    const void* tables, long long rows, long long P, long long bins,
+                    long long chunk, void* out, void* stream) {
   dim3 grid;
-  if (bins < 1 || bins > MAX_BINS || chunk < 1 || !grid_of(rows, P, chunk, &grid))
+  if (bins < 1 || bins > kMaxBins || chunk < 1 || !grid_of(rows, P, chunk, &grid))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = 8 * (size_t)bins;
-  cudaError_t err = cudaFuncSetAttribute(lookup_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool staged = bins <= kStagedLookupBins;
+  const size_t smem = staged ? 8 * (size_t)bins : 0;
+  auto* kernel = staged ? lookup_kernel<true> : lookup_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  lookup_kernel<<<grid, LOOKUP_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, LOOKUP_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)errors, (const unsigned char*)fg, (const float*)emax, (const float*)inv_w,
-      (const float*)tables, P, bins, chunk, (float*)out);
+      (const float*)tables, P, (int)bins, chunk, (float*)out);
   return (int)cudaGetLastError();
 }
 

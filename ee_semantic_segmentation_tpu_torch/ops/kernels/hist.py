@@ -15,8 +15,13 @@ buckets each row's errors into ``bins`` uniform-width descending buckets:
 ``errors`` is (rows, P) with void pixels at -1e30 (any error <= -1e29 is
 void); ``fg`` is a (rows, P) bool foreground mask; ``emax`` and ``inv_w``
 are per row, and a pixel's bucket is ``trunc(clip((emax - e) * inv_w, 0,
-bins - 1))``.  ``bins`` is 128 times a power of two (``hist_bins_ok``); the
-CUDA kernels take up to ``max_kernel_bins()`` (8192).
+bins - 1))``.  ``bins`` is 128 times a power of two (``hist_bins_ok``), as
+in the JAX package, with no upper limit: the CUDA kernels take every such
+count (kernel E keeps ``range_bins()`` = 8192 buckets a block and takes
+more in ranges of that many; kernel F reads its table from L2 once it
+outgrows shared memory).  Up to 2^30 buckets they run; above, one row's
+output and scratch alone (48 bytes a bucket) exceed an H100's 80 GB and
+``torch.empty`` raises first.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (``*_plain``: one ``scatter_add_`` per histogram, one
@@ -54,10 +59,10 @@ def _bucket_ids(errors, emax, inv_w, bins: int) -> torch.Tensor:
     return t.to(torch.int64)
 
 
-def max_kernel_bins() -> int:
-    """The most buckets the CUDA kernels take (kernel E keeps 24 bytes per
-    bucket in a block's shared memory)."""
-    return _build.load_library().ee_hist_max_bins()
+def range_bins() -> int:
+    """The most buckets one block of kernel E keeps in shared memory (24
+    bytes a bucket); above it, E takes the buckets in ranges of this many."""
+    return _build.load_library().ee_hist_range_bins()
 
 
 def hist2d_weighted_plain(errors, fg, emax, inv_w, *, bins: int) -> torch.Tensor:
@@ -85,9 +90,6 @@ def table_lookup_plain(errors, fg, emax, inv_w, tables, *, bins: int) -> torch.T
 def _check(errors, fg, emax, inv_w, bins: int, tables=None) -> None:
     if errors.device.type != "cuda":
         raise ValueError(f"errors on {errors.device}: the kernels take CUDA tensors")
-    if bins > max_kernel_bins():
-        raise ValueError(f"hist bins {bins} > {max_kernel_bins()}, the most the CUDA kernels "
-                         "take (kernel E keeps 24 bytes per bucket in a block's shared memory)")
     if errors.ndim != 2:
         raise ValueError(f"errors must be (rows, P), got {tuple(errors.shape)}")
     rows = errors.shape[0]
@@ -106,8 +108,9 @@ def _check(errors, fg, emax, inv_w, bins: int, tables=None) -> None:
 
 def _chunk(bins: int, least: int, per_bin: int) -> int:
     """Pixels per block: enough that a block's share of the row outweighs
-    the per-bucket work it does once (E's atomics, F's table staging)."""
-    return max(least, per_bin * bins)
+    the per-bucket work it does once (E's atomics, F's table staging), for
+    the at most ``range_bins()`` buckets a block of E keeps."""
+    return max(least, per_bin * min(bins, range_bins()))
 
 
 def hist2d_weighted(errors: torch.Tensor, fg: torch.Tensor, emax: torch.Tensor,

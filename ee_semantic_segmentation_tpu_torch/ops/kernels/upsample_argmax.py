@@ -173,9 +173,12 @@ def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
         return upsample_entropy_argmax_plain(logits, out_hw)
     N, h, w, C, H, W = _check_logits(logits, out_hw)
     lib = _build.load_library()
-    blocks_per_img = -(-H * W // lib.ee_threads_per_block())
+    tiles = lib.ee_ent_partials_per_image(h, w, C, H, W)  # one entropy partial a block
+    if tiles == 0:
+        raise ValueError(f"upsample_entropy_argmax: a band of ({h}, {w}, {C}) -> ({H}, {W}) "
+                         "does not fit a block's shared memory")
     labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
-    partial = torch.empty((N, blocks_per_img), dtype=torch.float32, device=logits.device)
+    partial = torch.empty((N, tiles), dtype=torch.float32, device=logits.device)
     ent = torch.empty((N,), dtype=torch.float32, device=logits.device)
     inv_norm = 1.0 / (H * W * math.log(C))
     with torch.cuda.device(logits.device):

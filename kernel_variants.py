@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time source variants of the unsort (kernel D's backward call) and of
-kernel E against the shipped kernels, on one NVIDIA GPU.
+"""Time source variants of the unsort (kernel D's backward call), of
+kernel E and of kernel B against the shipped kernels, on one NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 kernel_variants.py [--csrc DIR] [--only unsort|hist]
+    python3 kernel_variants.py [--csrc DIR] [--only unsort|hist|ent]
 
 Each variant is ``csrc/<source>`` with a few text substitutions (a
 constant changed, a step taken out), compiled by nvcc into a library of its
@@ -14,17 +14,23 @@ example an unpacked earlier commit); a variant whose text is not in those
 sources is skipped.  Times are medians of 20 runs between CUDA events
 (``chip_smoke.median_ms``) at the flagship's row shapes (63 x 2^22 and
 1008 x 2^18) and, for E, 1024 bins on the three error laws of
-``chip_smoke.py`` phase 3c.  A variant that takes a step out computes a
-wrong result by design: only the shipped kernels' results are checked here
-(against ``scatter_`` and the plain histogram), and ``chip_smoke.py``
-checks them everywhere else.  Imports nothing of JAX.
+``chip_smoke.py`` phase 3c and 16384 bins (E's bucket ranges) at 63 x
+2^22; B at the flagship's eval shape (N=16, 64x64 ->
+512x512, C=21, float32), where each variant's agreement with the plain
+version is printed too.  A variant that takes a step out computes a wrong
+result by design: only the shipped kernels' results are checked here
+(against ``scatter_``, the plain histogram and the plain entropy head),
+and ``chip_smoke.py`` checks them everywhere else.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -33,6 +39,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 FLAGSHIP_ROWS = ((63, 1 << 22), (1008, 1 << 18))
 HIST_BINS = 1024
+WIDE_BINS = 16384  # E's bucket ranges: its "E ranged" variants
 
 # name: (what it measures, source, [(text, replacement), ...])
 VARIANTS = {
@@ -56,6 +63,12 @@ VARIANTS = {
     "E loads and bucket ids only": ("hist_lovasz.cu", [
         ("    if (r.n) h.add(r.key, r.n, r.u, r.f);",
          "    if (r.n && r.key == -7 - bins) h.add(r.key, r.n, r.u, r.f);")]),
+    # E above 8192 bins (bucket ranges), as shipped with one device taken out
+    "E ranged on 512 threads": ("hist_lovasz.cu", [
+        ("constexpr int kRangedThreads = 1024;", "constexpr int kRangedThreads = 512;")]),
+    "E ranged with 1 load in flight": ("hist_lovasz.cu", [
+        ("      for (; v + 3 * T < n4; v += 4 * T) {",
+         "      for (; false && v + 3 * T < n4; v += 4 * T) {")]),
     # the histogram kernel with float sums in shared memory (an earlier
     # tree's csrc, given by --csrc), with one step taken out: its split
     "E, float-sum design, as it was": ("hist_lovasz.cu", [
@@ -73,7 +86,84 @@ VARIANTS = {
          "    const float e"),
         ("  __syncthreads();\n\n  int* c_row", "  if (acc == -7) s_n[0] = acc;\n  __syncthreads();\n\n"
          "  int* c_row")]),
+    # kernel B as shipped, with one constant changed or one step taken out
+    "B band of 2 rows": ("upsample_heads.cu", [
+        ("constexpr int kBandRows = 4;", "constexpr int kBandRows = 2;")]),
+    "B band of 8 rows": ("upsample_heads.cu", [
+        ("constexpr int kBandRows = 4;", "constexpr int kBandRows = 8;")]),
+    "B on 128 threads": ("upsample_heads.cu", [
+        ("constexpr int kEntThreads = 256;", "constexpr int kEntThreads = 128;")]),
+    "B on 512 threads": ("upsample_heads.cu", [
+        ("constexpr int kEntThreads = 256;", "constexpr int kEntThreads = 512;")]),
+    "B band of 16 rows": ("upsample_heads.cu", [
+        ("constexpr int kBandRows = 4;", "constexpr int kBandRows = 16;")]),
+    "B with exp2f": ("upsample_heads.cu", [
+        ("      const float e = fast_exp2(d);", "      const float e = exp2f(d);")]),
+    "B with expf": ("upsample_heads.cu", [
+        ("      const float e = fast_exp2(d);", "      const float e = expf(d * kLn2);")]),
+    "B loads and argmax only": ("upsample_heads.cu", [
+        ("      const float e = fast_exp2(d);", "      const float e = d;")]),
+    "B without the label store": ("upsample_heads.cu", [
+        ("      *reinterpret_cast<int4*>(dst) = make_int4(",
+         "      if (lab[0] == -7) *reinterpret_cast<int4*>(dst) = make_int4(")]),
+    "B with 4-byte label stores": ("upsample_heads.cu", [
+        ("    if (W % 4 == 0) {  // then x0, cols and xg are multiples of 4 too",
+         "    if (false) {  // then x0, cols and xg are multiples of 4 too")]),
+    "B with scalar staging loads": ("upsample_heads.cu", [
+        ("  const bool vec = (w * C) % 4 == 0 && (lx0 * C) % 4 == 0",
+         "  const bool vec = false && (w * C) % 4 == 0 && (lx0 * C) % 4 == 0")]),
+    "B on 128 threads, band of 8 rows": ("upsample_heads.cu", [
+        ("constexpr int kEntThreads = 256;", "constexpr int kEntThreads = 128;"),
+        ("constexpr int kBandRows = 4;", "constexpr int kBandRows = 8;")]),
+    "B with class loops unrolled by 2": ("upsample_heads.cu", [
+        ("  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 2\n  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];"),
+        ("  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 2\n  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];")]),
+    "B with class loops unrolled by 4": ("upsample_heads.cu", [
+        ("  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 4\n  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];"),
+        ("  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 4\n  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];")]),
+    "B with class loops not unrolled": ("upsample_heads.cu", [
+        ("  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 1\n  for (int k = 1; k < C; ++k) {\n    const float x = a[k], y = b[k];"),
+        ("  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];",
+         "#pragma unroll 1\n  for (int k = 0; k < C; ++k) {\n    const float x = a[k], y = b[k];")]),
+    "B pixel by pixel (no shared-tap groups)": ("upsample_heads.cu", [
+        ("    if (nx == 4 && c0.x == c3.x && c0.y == c3.y) {", "    if (false) {")]),
+    "B staging without row reuse": ("upsample_heads.cu", [
+        ("    if (ri.x != i_lo) {", "    if (true) {"), ("      if (ri.x == i_hi) {", "      if (false) {"),
+        ("    if (ri.y != i_hi) {", "    if (true) {"), ("      if (ri.y == i_lo) {", "      if (false) {")]),
+    "B pixels only (no staging)": ("upsample_heads.cu", [
+        ("  stage_band_rows(logits + (size_t)n * h * w * C,",
+         "  if (n < 0) stage_band_rows(logits + (size_t)n * h * w * C,")]),
+    "B staging only (no pixels)": ("upsample_heads.cu", [
+        ("  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {",
+         "  for (int g = threadIdx.x; g < 0; g += kEntThreads) {")]),
+    # kernel B with one thread an output pixel reading its 2x2 taps of every
+    # class from device memory (an earlier tree's csrc, given by --csrc),
+    # as it was and with one step taken out or swapped: its split
+    "B, per-pixel design, as it was": ("upsample_heads.cu", [
+        ("        if (k < C) v[k] = taps.value(k);", "        if (k < C) v[k] = taps.value(k);")]),
+    "B, per-pixel design, loads and argmax only": ("upsample_heads.cu", [
+        ("          const float e = expf(d);\n", "          const float e = d;\n")]),
+    "B, per-pixel design, without the label store": ("upsample_heads.cu", [
+        ("    labels_out[(size_t)n * HW + p] = arg;\n    ent = logf(z) - s / z;",
+         "    if (arg == -7) labels_out[(size_t)n * HW + p] = arg;\n    ent = logf(z) - s / z;")]),
+    "B, per-pixel design, __expf": ("upsample_heads.cu", [
+        ("          const float e = expf(d);\n", "          const float e = __expf(d);\n")]),
+    "B, per-pixel design, exp2f on prescaled values": ("upsample_heads.cu", [
+        ("          const float d = v[k] - m;\n          const float e = expf(d);\n",
+         "          const float d = (v[k] - m) * 1.44269504f;\n          const float e = exp2f(d);\n"),
+        ("    ent = logf(z) - s / z;", "    ent = 0.69314718f * (log2f(z) - s / z);")]),
 }
+
+
+def variant_so(name, _build):
+    """The library path of a variant, named by a hash of its name (a
+    process loads a path once: two variants must not share one)."""
+    return _build.BUILD_DIR / "variants" / f"v{hashlib.sha1(name.encode()).hexdigest()[:12]}.so"
 
 
 def build_variants(names, csrc, _build):
@@ -83,7 +173,7 @@ def build_variants(names, csrc, _build):
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _build.find_nvcc()
     procs = {}
-    for i, name in enumerate(names):
+    for name in names:
         src, subs = VARIANTS[name]
         text = (csrc / src).read_text()
         if not all(a in text for a, _ in subs):
@@ -91,7 +181,8 @@ def build_variants(names, csrc, _build):
             continue
         for a, b in subs:
             text = text.replace(a, b)
-        cu, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
+        so = variant_so(name, _build)
+        cu = so.with_suffix(".cu")
         cu.write_text(text)
         cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -141,7 +232,7 @@ def unsort_with(lib, perm, vals, torch):
 
 def hist_with(lib, errors, fg, emax, inv_w, bins, torch):
     rows, P = errors.shape
-    chunk = max(1 << 16, 64 * bins)
+    chunk = max(1 << 16, 64 * min(bins, 8192))  # the wrapper's: sized by E's bucket range
     stream = torch.cuda.current_stream().cuda_stream
     if hasattr(lib, "ee_hist_scratch_words"):
         out = torch.empty((rows, 4, bins), dtype=torch.float32, device="cuda")
@@ -158,12 +249,31 @@ def hist_with(lib, errors, fg, emax, inv_w, bins, torch):
     return out
 
 
+def ent_with(lib, U, logits, H, W, torch):
+    """Kernel B through a variant's library: (maps, entropies)."""
+    N, h, w, C = logits.shape
+    per_img = (lib.ee_ent_partials_per_image(h, w, C, H, W)
+               if hasattr(lib, "ee_ent_partials_per_image")
+               else -(-H * W // lib.ee_threads_per_block()))  # one partial a block of pixels
+    labels = torch.empty((N, H, W), dtype=torch.int32, device="cuda")
+    partial = torch.empty((N, per_img), dtype=torch.float32, device="cuda")
+    ent = torch.empty((N,), dtype=torch.float32, device="cuda")
+    err = lib.ee_upsample_entropy_argmax(
+        *U._launch_args(logits, H, W), N, h, w, C, H, W, 1.0 / (H * W * math.log(C)),
+        labels.data_ptr(), partial.data_ptr(), ent.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"entropy head variant: CUDA error {err}")
+    return labels, ent
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=pathlib.Path, default=None,
                     help="take the variants' sources from this csrc/ directory")
-    ap.add_argument("--only", choices=("unsort", "hist"), default=None)
+    ap.add_argument("--only", choices=("unsort", "hist", "ent"), default=None)
     args = ap.parse_args(argv)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -174,18 +284,18 @@ def main(argv=None) -> int:
     from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
     from ee_semantic_segmentation_tpu_torch.ops.kernels import hist as Hk
     from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as S
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import upsample_argmax as U
     from ee_semantic_segmentation_tpu_torch.ops.lovasz import _hist_prepass
 
     card = CS.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(card.splitlines()[0])
     csrc = args.csrc or _build.CSRC
     _build.load_library()
-    names = [n for n in VARIANTS
-             if args.only is None or n.startswith("unsort" if args.only == "unsort" else "E")]
+    prefix = {"unsort": "unsort", "hist": "E", "ent": "B"}
+    names = [n for n in VARIANTS if args.only is None or n.startswith(prefix[args.only])]
     libs = build_variants(names, csrc, _build)
     for name, so in [("shipped", _build.build())] + [
-            (n, _build.BUILD_DIR / "variants" / f"v{names.index(n)}.so") for n in libs
-            if n.endswith("as it was")]:
+            (n, variant_so(n, _build)) for n in libs if n.endswith("as it was")]:
         for fn, ops in sass_atomics(so, _build).items():
             if "hist_kernel" in fn or "unsort_partition" in fn:
                 print(f"[variants] SASS atomics, {name}, {fn.split('_cu_')[-1][:60]}: {ops}")
@@ -216,29 +326,59 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     if args.only in (None, "hist"):
-        for R, P in FLAGSHIP_ROWS:
+        for bins, (R, P) in [(HIST_BINS, rows) for rows in FLAGSHIP_ROWS] + [
+                (WIDE_BINS, FLAGSHIP_ROWS[0])]:
             for law in (None, *CS.LOVASZ_LAWS):
                 errors, fg, valid = CS.hist_rows(R, P, g, torch, law)
-                emax, inv_w = _hist_prepass(errors, valid, HIST_BINS)
-                hk = Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=HIST_BINS)
-                hp = Hk.hist2d_weighted_plain(errors, fg, emax, inv_w, bins=HIST_BINS)
-                s64 = CS.hist_sums_f64(errors, fg, emax, inv_w, HIST_BINS, torch)
+                emax, inv_w = _hist_prepass(errors, valid, bins)
+                hk = Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins)
+                hp = Hk.hist2d_weighted_plain(errors, fg, emax, inv_w, bins=bins)
+                s64 = CS.hist_sums_f64(errors, fg, emax, inv_w, bins, torch)
                 rel = CS.max_rel(hk[:, 2:], s64, torch)
                 CS.check(bool(torch.equal(hk[:, :2], hp[:, :2])), f"E's counts at {R}x{P} {law}")
                 CS.check(rel <= CS.TOL_HIST_SUM_RTOL, f"E's sums at {R}x{P} {law}: rel {rel:.3g}")
                 rel = f"{rel:.3g} (the plain version's {CS.max_rel(hp[:, 2:], s64, torch):.3g})"
                 ms = {"shipped": CS.median_ms(
-                    lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=HIST_BINS))}
-                for name, lib in libs.items():
-                    if name.startswith("E"):
+                    lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins))}
+                for name, lib in libs.items():  # the ranged variants differ above 8192 only
+                    if name.startswith("E") and (bins > 8192 or not name.startswith("E ranged")):
                         ms[name] = CS.median_ms(
-                            lambda: hist_with(lib, errors, fg, emax, inv_w, HIST_BINS, torch))
-                print(f"[variants] E {R}x{P} {law or 'uniform'}: sums rel to float64 {rel}; ms "
-                      f"{json.dumps(ms)}")
-                print(f"[variants] E {R}x{P} {law or 'uniform'} shipped, per CUDA kernel: "
-                      f"{CS.per_kernel_ms(lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=HIST_BINS), torch)}")
+                            lambda: hist_with(lib, errors, fg, emax, inv_w, bins, torch))
+                print(f"[variants] E {R}x{P} {bins} bins {law or 'uniform'}: sums rel to float64 "
+                      f"{rel}; ms {json.dumps(ms)}")
+                print(f"[variants] E {R}x{P} {bins} bins {law or 'uniform'} shipped, per CUDA "
+                      f"kernel: {CS.per_kernel_ms(lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins), torch)}")
                 del errors, fg, valid, hk, hp, s64
                 torch.cuda.empty_cache()
+
+    if args.only in (None, "ent"):
+        N, h, w, H, W = 16, 64, 64, 512, 512
+        rng = np.random.RandomState(0)  # chip_smoke.py phase 3's flagship logits
+        logits = torch.from_numpy((2 * rng.randn(N, h, w, CS.C)).astype(np.float32)).cuda()
+        maps_p, ent_p = U.upsample_entropy_argmax_plain(logits, (H, W))
+
+        def agreement(maps, ent):
+            rel = float(((ent - ent_p).abs() / ent_p.abs()).max())
+            return 1.0 - (maps != maps_p).float().mean().item(), rel
+
+        agree, rel = agreement(*U.upsample_entropy_argmax(logits, (H, W)))
+        CS.check(agree >= CS.TOL_MAP_AGREE and rel <= CS.TOL_ENT_RTOL,
+                 f"kernel B vs plain: maps agree {agree}, entropy rel {rel:.3g}")
+        ms = {"shipped": CS.median_ms(lambda: U.upsample_entropy_argmax(logits, (H, W)))}
+        for name, lib in libs.items():
+            if name.startswith("B"):
+                a, r = agreement(*ent_with(lib, U, logits, H, W, torch))
+                print(f"[variants] B {name}: maps agree {a:.7f}, entropy rel {r:.3g} (a variant "
+                      "that takes a step out is wrong by design)")
+                ms[name] = CS.median_ms(lambda: ent_with(lib, U, logits, H, W, torch))
+        ms["shipped, again"] = CS.median_ms(lambda: U.upsample_entropy_argmax(logits, (H, W)))
+        print(f"[variants] B N={N} {h}x{w}->{H}x{W} C={CS.C} f32 ms: {json.dumps(ms)}")
+        for name, lib in (("shipped", None), *libs.items()):
+            if name == "shipped" or name.startswith("B"):
+                fn = ((lambda: U.upsample_entropy_argmax(logits, (H, W))) if lib is None
+                      else (lambda: ent_with(lib, U, logits, H, W, torch)))
+                print(f"[variants] B {name}, per CUDA kernel [launches, ms]: "
+                      f"{CS.per_kernel_ms(fn, torch)}")
     return 0
 
 

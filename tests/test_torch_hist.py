@@ -85,6 +85,40 @@ def test_hist_plain_matches_jax_scatter(R, P, bins):
     _assert_hist_close(got, want, SUM_RTOL)
 
 
+@pytest.mark.parametrize("bins", [16384, 32768])
+@pytest.mark.parametrize("law", [None, "trained"])
+def test_hist_plain_matches_jax_scatter_above_8192_bins(bins, law):
+    """The bucket counts that kernel E takes in ranges of 8192 on the card
+    (``-G 16384`` and above): the counts exactly, the sums within the
+    reordered float32 sum's rounding, on a few short rows, uniform-ish and
+    crowded ("trained")."""
+    if law is None:
+        errors, fg, _, emax, inv_w = _rows(3, 4000, bins, seed=bins)
+    else:
+        errors, fg, _, emax, inv_w = _lovasz_rows(3, 4000, bins, law, seed=bins)
+    want = np.asarray(JH.hist2d_weighted_jnp(*_jax_args(errors, fg, emax, inv_w), bins=bins))
+    got = TH.hist2d_weighted(*_port_args(errors, fg, emax, inv_w), bins=bins).numpy()
+    assert got.shape == (3, 4, bins) and got[:, 0].sum() == (errors > -1e29).sum()
+    _assert_hist_close(got, want, SUM_RTOL)
+
+
+@pytest.mark.parametrize("bins", [16384, 32768])
+@pytest.mark.parametrize("law", [None, "trained"])
+def test_lookup_plain_matches_jax_above_8192_bins(bins, law):
+    """Bit for bit against the JAX gather at the bin counts where kernel F
+    reads its table from L2 (32768) or still stages it (16384) on the card."""
+    if law is None:
+        errors, fg, _, emax, inv_w = _rows(3, 4000, bins, seed=bins + 1)
+    else:
+        errors, fg, _, emax, inv_w = _lovasz_rows(3, 4000, bins, law, seed=bins + 1)
+    tables = np.random.RandomState(3).randn(3, 2, bins).astype(np.float32)
+    args = _jax_args(errors, fg, emax, inv_w) + (jnp.asarray(tables),)
+    want = np.asarray(JH.table_lookup_jnp(*args, bins=bins))
+    got = TH.table_lookup(*_port_args(errors, fg, emax, inv_w), torch.from_numpy(tables),
+                          bins=bins).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("R,P,bins", [(2, 5000, 128), (3, 3000, 256)])
 def test_hist_plain_matches_jax_pallas_interpret(R, P, bins):
     """Several 4096-pixel chunks, the last one ragged."""
@@ -296,7 +330,7 @@ def test_bad_bins_raise_the_jax_message(bins):
                            torch.zeros(1), torch.zeros(1), bins=bins)
 
 
-@pytest.mark.parametrize("bins", [128, 256, 1024, 8192, 16384])
+@pytest.mark.parametrize("bins", [128, 256, 1024, 8192, 16384, 65536, 1 << 24])
 def test_hist_bins_ok_matches_jax(bins):
     assert TH.hist_bins_ok(bins) and JH.hist_bins_ok(bins)
 
@@ -332,6 +366,6 @@ def test_build_compiles_the_hist_source_with_plain_c_entry_points(tmp_path, monk
     with pytest.raises(RuntimeError, match="nvcc not found") as err:
         _build.build(tmp_path)
     assert "hist_lovasz.cu" in str(err.value)
-    for name in ("ee_hist2d_weighted", "ee_table_lookup", "ee_hist_max_bins",
+    for name in ("ee_hist2d_weighted", "ee_table_lookup", "ee_hist_range_bins",
                  "ee_hist_scratch_words"):
         assert name in _build._SIGNATURES

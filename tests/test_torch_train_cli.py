@@ -83,13 +83,16 @@ def test_checkpoint_with_optimizer_state_resumes_the_same_trajectory(tmp_path):
 
 @pytest.mark.parametrize("cli_name,extra", [("main_bradeepv3", []),
                                             ("main_bradeepv3_ce", []),
-                                            ("main_bradeepv3", ["-G", "1024"])],
-                         ids=["main_bradeepv3", "main_bradeepv3_ce", "main_bradeepv3-G"])
+                                            ("main_bradeepv3", ["-G", "1024"]),
+                                            ("main_bradeepv3", ["-G", "16384"])],
+                         ids=["main_bradeepv3", "main_bradeepv3_ce", "main_bradeepv3-G",
+                              "main_bradeepv3-G16384"])
 def test_training_cli_end_to_end_on_cpu(tmp_path, monkeypatch, cli_name, extra):
     """One epoch of the synthetic set at 32 px: checkpoint (.pt, .opt.pt,
     .json with the JAX package's schema), the curve CSV and the test-mIoU
     row in the JAX layouts, and a checkpoint the eval CLI loads; with -G,
-    the histogram Lovász."""
+    the histogram Lovász (16384 bins: above the 8192 that kernel E keeps in
+    one block, every 128 * 2^k of the JAX package is taken)."""
     from ee_semantic_segmentation_tpu.train.checkpoint import load_config as j_load_config
     from ee_semantic_segmentation_tpu_torch.cli import eval_miou
 
