@@ -11,11 +11,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and its maximum SM clock (the SFU term of kernel B's bound);
 2. build: compile the CUDA kernels from ``csrc/`` with nvcc;
 3. kernel vs plain version on the card (TF32 off), at the flagship eval
-   shape (N=16, 64x64 -> 512x512, C=21) and a ragged one: argmax maps of
-   kernels B and C, confusion counts and entropies must agree; kernel,
-   plain and library times are medians of 20 runs timed with CUDA events;
-   then kernel B alone at its edge cases (40 classes, bf16 logits, H not a
-   multiple of its band, W not a multiple of 4, no resize, column tiles);
+   shape (N=16, 64x64 -> 512x512, C=21), a ragged one and the eval's padded
+   last batch (count 4 of 12): argmax maps of kernels B and C, confusion
+   counts and entropies must agree; kernel, plain and library times are
+   medians of 20 runs timed with CUDA events, and one call of A split per
+   CUDA kernel; kernel A also on a trained model's logits and labels
+   (``trained_conf_law``: mostly background, ~89 % right, 5 % void),
+   its time within TOL_A_TRAINED_RATIO of the uniform law's; then kernels
+   B and A at their edge cases (40 classes, bf16 logits, H not a multiple
+   of the band, W not a multiple of 4, no resize, column tiles);
 3b. the sort kernel D vs its plain version (TF32 off) at the flagship's
    Lovász row shapes (63 rows of 2^22, 1008 of 2^18), one and two tiles,
    1024, a ragged row, heavy ties, +-0/+-NaN/+-inf/+-1e30 keys, int32 keys
@@ -42,8 +46,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    equal the plain version's exactly,
    its error sums agree within TOL_HIST_SUM_RTOL with the same sums in
    float64, F's output must equal the plain version's bit for bit; kernel,
-   plain, library and bound times and one E call split per CUDA kernel at
-   the six flagship cases and at 16384 bins (kernel times at 65536); then
+   plain, library and bound times and one E and one F call split per CUDA
+   kernel at every case of the flagship's row shapes (1024 bins on the
+   three laws at both shapes; 16384 and 65536 bins on the three laws at 63
+   rows of 2^22); then
    the ``-G 1024`` and ``-G 16384`` multi-exit Lovász values and gradients
    with the kernels vs with the plain versions on flagship-shaped logits
    (3, 16, 512, 512, 21);
@@ -102,6 +108,8 @@ C = 21
 TOL_MAP_AGREE = 0.99999    # share of argmax pixels that must agree
 TOL_ENT_RTOL = 1e-4        # entropy: float association and expf vs softmax+log
 TOL_MIOU_ABS = 1e-4        # kernel head vs plain head, per-exit mIoU
+TOL_A_TRAINED_RATIO = 1.2  # kernel A's time on a trained model's logits and
+#                            labels over its time on the uniform law
 TOL_HIST_SUM_RTOL = 1e-4   # E's error sums vs the same sums in float64
 #                            (hist_sums_f64): E adds most errors exactly as
 #                            integers (rounding <= 2^-17 an error), the rest
@@ -180,13 +188,65 @@ def bounds_ms(N, h, w, H, W, count, esize):
     }
 
 
+def trained_conf_law(N, h, w, H, W, nc, seed):
+    """(N, h, w, nc) float32 logits and (N, H, W) int32 labels of a trained
+    model's eval batch, from a numpy seed: a low-res class map of background
+    (class 0) with rectangles of the other classes on ~23 % of each image;
+    logits N(0, 1) plus 6 on the map's class; labels the map at full
+    resolution (nearest), then 6 % of pixels a random class and 5 % void
+    (255).  The upsampled argmax then agrees with the labels on ~89 % of the
+    pixels, and ~75 % of it is background: a block's pixels mostly share
+    one confusion key (TP of class 0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cls = np.zeros((N, h, w), np.int64)
+    for n in range(N):
+        while (cls[n] > 0).mean() < 0.22:
+            rh, rw = rng.randint(max(1, h // 8), max(2, h // 3 + 1), 2)
+            y, x = rng.randint(0, h - rh + 1), rng.randint(0, w - rw + 1)
+            cls[n, y:y + rh, x:x + rw] = rng.randint(1, nc)
+    logits = rng.randn(N, h, w, nc) + 6.0 * np.eye(nc)[cls]
+    labels = cls[:, (np.arange(H) * h) // H][:, :, (np.arange(W) * w) // W]
+    u = rng.rand(N, H, W)
+    labels = np.where(u < 0.06, rng.randint(0, nc, (N, H, W)), labels)
+    labels = np.where((u >= 0.06) & (u < 0.11), 255, labels)
+    return logits.astype(np.float32), labels.astype(np.int32)
+
+
+def conf_vs_plain(U, torch, tag, logits, labels, count, out_hw, maps_k=None):
+    """Kernel A against its plain version: counts within 3 per pixel whose
+    argmax flips.  A takes the argmax walk of kernel B (``pixels_argmax``):
+    the flipped pixels are those where B's map, given as ``maps_k`` or made
+    here, differs from the plain map, in the rows n < count."""
+    conf_k = U.upsample_argmax_confusion(logits, labels, count, out_hw)
+    conf_p = U.upsample_argmax_confusion_plain(logits, labels, count, out_hw)
+    maps_p = U.upsample_argmax_plain(logits, out_hw)
+    if maps_k is None:
+        maps_k = U.upsample_entropy_argmax(logits, out_hw)[0]
+    torch.cuda.synchronize()
+    n_flipped = int((maps_k != maps_p)[:count].sum())
+    conf_l1 = float((conf_k - conf_p).abs().sum())
+    valid = (labels[:count] >= 0) & (labels[:count] < logits.shape[-1])
+    agree = float(((maps_p[:count] == labels[:count]) & valid).sum()) / labels[:count].numel()
+    print(f"[kernel-vs-plain] A {tag}: N={logits.shape[0]} {tuple(logits.shape[1:3])}->{out_hw} "
+          f"C={logits.shape[-1]} {logits.dtype} count={count}: confusion sum|d| {conf_l1:g} "
+          f"(max {float((conf_k - conf_p).abs().max()):g}), {n_flipped} flipped pixels; "
+          f"argmax background {float((maps_p[:count] == 0).float().mean()):.3f}, void labels "
+          f"{float((~valid).float().mean()):.3f}, argmax == label {agree:.3f} of the pixels")
+    check(conf_l1 <= 3 * n_flipped,
+          f"A {tag}: confusion counts differ by {conf_l1} > 3 x {n_flipped} flipped pixels")
+    return float((conf_k - conf_p).abs().max())
+
+
 def kernel_vs_plain(U, torch):
     """Phase 3.  Returns per-kernel measurements at the flagship shape."""
     import numpy as np
     import torch.nn.functional as Fn
 
     results = {}
-    cases = [("flagship", (16, 64, 64), (512, 512), 16), ("ragged", (3, 9, 13), (67, 101), 2)]
+    cases = [("flagship", (16, 64, 64), (512, 512), 16), ("ragged", (3, 9, 13), (67, 101), 2),
+             ("padded batch", (12, 64, 64), (512, 512), 4)]  # eval's last batch: count 4 of 12
     for tag, (N, h, w), (H, W), count in cases:
         rng = np.random.RandomState(0)
         logits = torch.from_numpy((2 * rng.randn(N, h, w, C)).astype(np.float32)).cuda()
@@ -242,10 +302,28 @@ def kernel_vs_plain(U, torch):
             print(f"[kernel-vs-plain] {key} at {tag}: kernel {results[key]['ms']:.4f} ms, "
                   f"plain {results[key]['plain_ms']:.4f} ms, library (interpolate+argmax) "
                   f"{lib_ms:.4f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]})")
-    # kernel B's edge cases: more classes than 32, bf16 logits, output rows
-    # that do not fill the last band, output columns that do not fill a
-    # 16-byte label store, no resize, and rows too wide for one tile of
-    # shared memory
+        print(f"[kernel-vs-plain] A at {tag}, one call per CUDA kernel [launches, ms]: "
+              f"{per_kernel_ms(lambda: U.upsample_argmax_confusion(logits, labels, count, (H, W)), torch, {'up_argmax_conf_kernel': 1})}")
+        # kernel A on a trained model's logits and labels: most of a block
+        # shares one confusion key; its time within TOL_A_TRAINED_RATIO of
+        # the uniform law's above
+        lt, lab_t = trained_conf_law(N, h, w, H, W, C, seed=5)
+        lt, lab_t = torch.from_numpy(lt).cuda(), torch.from_numpy(lab_t).cuda()
+        results["A"]["max_abs_err"] = max(results["A"]["max_abs_err"],
+                                          conf_vs_plain(U, torch, "trained law", lt, lab_t, count,
+                                                        (H, W)))
+        ms_t = results["A"]["ms_trained"] = median_ms(
+            lambda: U.upsample_argmax_confusion(lt, lab_t, count, (H, W)))
+        ratio = ms_t / results["A"]["ms"]
+        print(f"[kernel-vs-plain] A at {tag}, trained law: kernel {ms_t:.4f} ms = {ratio:.3f} x "
+              f"the uniform law's {results['A']['ms']:.4f} ms; one call per CUDA kernel "
+              f"[launches, ms]: {per_kernel_ms(lambda: U.upsample_argmax_confusion(lt, lab_t, count, (H, W)), torch, {'up_argmax_conf_kernel': 1})}")
+        check(ratio <= TOL_A_TRAINED_RATIO,
+              f"A on the trained law takes {ratio:.3f} x its uniform-law time > {TOL_A_TRAINED_RATIO}")
+    # kernels B's and A's edge cases (A's labels 5 % void, 255): more classes
+    # than 32, bf16 logits, output rows that do not fill the last band,
+    # output columns that do not fill a 16-byte label load or store, no
+    # resize, and rows too wide for one tile of shared memory
     b_cases = [
         ("C=40, above 32 classes", (2, 16, 16), 40, (128, 128), torch.float32),
         ("bf16 logits, flagship", (16, 64, 64), C, (512, 512), torch.bfloat16),
@@ -258,7 +336,10 @@ def kernel_vs_plain(U, torch):
         rng = np.random.RandomState(1)
         logits = torch.from_numpy((2 * rng.randn(N, h, w, nc)).astype(np.float32)).to(
             device="cuda", dtype=dtype)
+        lab = rng.randint(0, nc + 1, (N, H, W))
+        labels = torch.from_numpy(np.where(rng.rand(N, H, W) < 0.05, 255, lab).astype(np.int32))
         maps_k, ent_k = U.upsample_entropy_argmax(logits, (H, W))
+        conf_vs_plain(U, torch, tag, logits, labels.cuda(), N, (H, W), maps_k)
         maps_p, ent_p = U.upsample_entropy_argmax_plain(logits, (H, W))
         torch.cuda.synchronize()
         agree = 1.0 - (maps_k != maps_p).float().mean().item()
@@ -271,24 +352,46 @@ def kernel_vs_plain(U, torch):
     return results
 
 
+# short spin kernels that open each profiler session, and what they show
+PROFILER_GUARDS = 16
+profiler_tally = {"sessions": 0, "guard records lost": 0, "most lost in one session": 0,
+                  "splits not measured": 0}
+
+
 def per_kernel_ms(fn, torch, want=None):
     """One call of ``fn`` under ``torch.profiler``: {CUDA kernel: [launches,
-    device ms]}.  ``want``: {start of a kernel's name: launches} that the
-    call makes.  After many profiler sessions in one process a session now
-    and then misses its first records; a trace short of ``want`` is taken
-    again (up to 5 times), with a line that says so if it stays short."""
+    device ms]}, or None when the trace stays short of ``want``: {start of a
+    kernel's name: launches} that the call makes.  After many profiler
+    sessions in one process a session loses the records of its first few
+    kernels, whichever they are (up to 7 a session in the runs of PERF.md),
+    so a trace of one kernel after a few guards loses that kernel.  Each
+    session therefore starts with ``PROFILER_GUARDS`` spin kernels
+    (``torch.cuda._sleep``, left out of the result) that take the loss;
+    ``profiler_tally`` counts the guard records lost.  A trace still short
+    of ``want`` is taken again (up to 5 times); after that the split was not
+    measured and None stands for it, never a 0."""
     for _ in range(5):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILER_GUARDS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
+        events = prof.key_averages()
+        lost = PROFILER_GUARDS - sum(e.count for e in events if "spin" in e.key)
+        profiler_tally["sessions"] += 1
+        profiler_tally["guard records lost"] += lost
+        profiler_tally["most lost in one session"] = max(
+            lost, profiler_tally["most lost in one session"])
         got = {re.sub(r"^(void )?\(anonymous namespace\)::", "", e.key).split("(")[0]:
                [e.count, round(e.device_time_total / 1e3, 3)]
-               for e in prof.key_averages() if e.device_time_total > 0}
+               for e in events if e.device_time_total > 0 and "spin" not in e.key}
         if all(kernels_of(got, start)[0] >= n for start, n in (want or {}).items()):
             return got
-    print(f"[profiler] five traces short of {want}; the last one is reported")
-    return got
+    profiler_tally["splits not measured"] += 1
+    print(f"[profiler] five traces short of {want}: not measured")
+    return None
 
 
 def kernels_of(trace, start):
@@ -581,14 +684,7 @@ def hist_vs_plain(Hk, torch):
             check(not hk[1].any() and not wk[1].any(), "the all-void row is not all zero")
             check(int(hk[2, 0, 0]) == P and not hk[2, 0, 1:].any(),
                   "the all-tied row is not in one bucket")
-        if tag.startswith("flagship") and bins == HIST_WIDE_BINS[-1]:
-            ms = {k: median_ms(fn, 5, 1) for k, fn in (
-                ("E", lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins)),
-                ("F", lambda: Hk.table_lookup(errors, fg, emax, inv_w, tables, bins=bins)))}
-            results["E", tag], results["F", tag] = {"ms": ms["E"]}, {"ms": ms["F"]}
-            print(f"[hist-vs-plain] at {tag}: E {ms['E']:.3f} ms, F {ms['F']:.3f} ms "
-                  f"(kernels only)")
-        elif tag.startswith("flagship"):
+        if tag.startswith("flagship"):
             idx = ((emax[:, None] - errors) * inv_w[:, None]).clamp(0, bins - 1).long()
             fgv = fg & valid
             idx4 = (idx[:, None, :] + bins * torch.arange(4, device="cuda")[None, :, None])
@@ -626,14 +722,20 @@ def hist_vs_plain(Hk, torch):
             e_split = per_kernel_ms(lambda: Hk.hist2d_weighted(errors, fg, emax, inv_w, bins=bins),
                                     torch, {"hist_kernel": 1, "hist_finalize_kernel": 1})
             print(f"[hist-vs-plain] E at {tag}, one call per CUDA kernel [launches, ms]: {e_split}")
+            f_split = per_kernel_ms(
+                lambda: Hk.table_lookup(errors, fg, emax, inv_w, tables, bins=bins), torch,
+                {"lookup_": 1})
+            print(f"[hist-vs-plain] F at {tag}, one call per CUDA kernel [launches, ms]: {f_split}")
             del idx, fgv, idx4, src4, idx2, tab2
         del errors, fg, valid, hk, hp, wk, wp, tables, s64
         torch.cuda.empty_cache()
-    for b in HIST_WIDE_BINS[:1]:
-        uniform = results["E", f"{SORT_MAIN_SHAPE}, uniform, {b} bins"]["ms"]
-        print(f"[hist-vs-plain] E at {b} bins, 63x2^22: "
-              + ", ".join(f"{law} / uniform {results['E', f'{SORT_MAIN_SHAPE}, {law}, {b} bins']['ms'] / uniform:.3f}"
-                          for law in LOVASZ_LAWS))
+    for key in ("E", "F"):
+        for b in HIST_WIDE_BINS:
+            uniform = results[key, f"{SORT_MAIN_SHAPE}, uniform, {b} bins"]["ms"]
+            print(f"[hist-vs-plain] {key} at {b} bins, 63x2^22: " + ", ".join(
+                f"{law} / uniform "
+                f"{results[key, f'{SORT_MAIN_SHAPE}, {law}, {b} bins']['ms'] / uniform:.3f}"
+                for law in LOVASZ_LAWS))
     return results
 
 
@@ -744,7 +846,7 @@ def training_path(S, Hk, kernels, torch):
 # each loss kernel's CUDA kernels, by the start of their names in a trace
 LOSS_CUDA_KERNELS = {"sort_rows": ("radix_",), "unsort_rows": ("unsort_",),
                      "hist2d_weighted": ("hist_kernel", "hist_finalize_kernel"),
-                     "table_lookup": ("lookup_kernel",)}
+                     "table_lookup": ("lookup_",)}
 
 
 def training_throughput(torch):
@@ -812,19 +914,25 @@ def training_throughput(torch):
               f"{ips[f'train {name}']:.2f} images/s at 512x512 batch {bs}")
         if name != "ce":
             want = ({"radix_": 16, "unsort_": 2} if name.startswith("lovasz")
-                    else {"hist_kernel": 1, "hist_finalize_kernel": 1, "lookup_kernel": 1})
+                    else {"hist_kernel": 1, "hist_finalize_kernel": 1, "lookup_": 1})
             trace = per_kernel_ms(lambda: step(*batches[0], 0.01), torch, want)
-            found = {k: kernels_of(trace, starts) for k, starts in LOSS_CUDA_KERNELS.items()}
-            in_step[name] = {k: ms for k, (_, ms) in found.items()}
-            launches = {k: n for k, (n, _) in found.items()}
-            kernel_ms = sum(in_step[name].values())
-            share[name] = kernel_ms / step_ms
-            cuda = {k: v for k, v in trace.items()
-                    if k.startswith(sum(LOSS_CUDA_KERNELS.values(), ()))}
-            print(f"[train-profile] {name}: one step under torch.profiler, the loss kernels' "
-                  f"device ms {json.dumps({k: round(v, 3) for k, v in in_step[name].items()})} "
-                  f"(CUDA launches {launches}; per CUDA kernel [launches, ms] {cuda}): "
-                  f"{kernel_ms:.2f} ms = {100 * share[name]:.2f} % of the {step_ms:.1f} ms step")
+            if trace is None:  # no reading: null in the kernels line
+                in_step[name] = dict.fromkeys(LOSS_CUDA_KERNELS)
+                share[name] = None
+                print(f"[train-profile] {name}: the loss kernels' device ms not measured")
+            else:
+                found = {k: kernels_of(trace, starts) for k, starts in LOSS_CUDA_KERNELS.items()}
+                in_step[name] = {k: ms for k, (_, ms) in found.items()}
+                launches = {k: n for k, (n, _) in found.items()}
+                kernel_ms = sum(in_step[name].values())
+                share[name] = kernel_ms / step_ms
+                cuda = {k: v for k, v in trace.items()
+                        if k.startswith(sum(LOSS_CUDA_KERNELS.values(), ()))}
+                print(f"[train-profile] {name}: one step under torch.profiler, the loss kernels' "
+                      f"device ms {json.dumps({k: round(v, 3) for k, v in in_step[name].items()})} "
+                      f"(CUDA launches {launches}; per CUDA kernel [launches, ms] {cuda}): "
+                      f"{kernel_ms:.2f} ms = {100 * share[name]:.2f} % of the {step_ms:.1f} ms "
+                      "step")
         del model, opt, step, loss
         torch.cuda.empty_cache()
     return ips, share, in_step
@@ -961,7 +1069,13 @@ def main_path(U, torch):
                  ("up_argmax_kernel",)),
             ):
                 batch_ms = median_ms(fn, 5, 1)
-                n, ms = kernels_of(per_kernel_ms(fn, torch, {starts[0]: 3}), starts)
+                trace = per_kernel_ms(fn, torch, {starts[0]: 3})
+                if trace is None:  # no reading: null in the kernels line
+                    in_step[key] = None
+                    print(f"[eval-profile] {name} kernel head: kernel {key}'s device ms not "
+                          "measured")
+                    continue
+                n, ms = kernels_of(trace, starts)
                 in_step[key] = ms
                 print(f"[eval-profile] {name} kernel head, one batch of {bs} at 512x512: kernel "
                       f"{key} ({', '.join(starts)}: {n} CUDA launches) {ms:.4f} ms of device time "
@@ -1112,6 +1226,7 @@ def main() -> int:
     train_ips, kernel_share, in_step = training_throughput(torch)
 
     # ---------------------------------------------------------------- phase 5
+    print(f"[profiler] {PROFILER_GUARDS} guard kernels a session: {json.dumps(profiler_tally)}")
     kernels = []
     for key, name, replaces in KERNEL_INFO:
         m = measured[key]
@@ -1122,6 +1237,7 @@ def main() -> int:
             "max_abs_err": m["max_abs_err"], "ms": m["ms"], "kernel_ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "in_step_ms": eval_in_step[key],
+            **({"ms_trained_law": m["ms_trained"]} if "ms_trained" in m else {}),
         })
     for name, by_shape in sort_measured.items():
         m = by_shape[SORT_MAIN_SHAPE]  # the -P row shape, beside the default's
@@ -1160,9 +1276,10 @@ def main() -> int:
             "ms_above_range": {f"{b} bins, {law or 'uniform'}":
                                hist_measured[key, f"{SORT_MAIN_SHAPE}, {law or 'uniform'}, {b} bins"]["ms"]
                                for b in HIST_WIDE_BINS for law in (None, *LOVASZ_LAWS)},
-            f"{HIST_WIDE_BINS[0]}_bins": {
-                k: v for k, v in hist_measured[key, f"{SORT_MAIN_SHAPE}, uniform, {HIST_WIDE_BINS[0]} bins"].items()
-                if k.endswith("ms")},
+            **{f"{b}_bins": {k: v for k, v in
+                             hist_measured[key, f"{SORT_MAIN_SHAPE}, uniform, {b} bins"].items()
+                             if k.endswith("ms")}
+               for b in HIST_WIDE_BINS},
         })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
                       "train_images_per_s": train_ips,

@@ -55,8 +55,8 @@ _SIGNATURES = {
     "ee_hist_scratch_words": ([_L, _L], _L),
     # errors, fg, emax, inv_w, rows, P, bins, chunk, scratch, out, stream
     "ee_hist2d_weighted": ([_P, _P, _P, _P, _L, _L, _L, _L, _P, _P, _P], _I),
-    # errors, fg, emax, inv_w, tables, rows, P, bins, chunk, out, stream
-    "ee_table_lookup": ([_P, _P, _P, _P, _P, _L, _L, _L, _L, _P, _P], _I),
+    # errors, fg, emax, inv_w, tables, rows, P, bins, out, stream
+    "ee_table_lookup": ([_P, _P, _P, _P, _P, _L, _L, _L, _P, _P], _I),
 }
 
 

@@ -6,7 +6,7 @@
 //         `bins` uniform-width descending error buckets: pixel count, fg
 //         count, error sum, fg error sum.  The forward of the -G Lovász.
 //   F  table_lookup_pallas (_lookup_kernel)
-//      -> lookup_kernel: per pixel, the fg or bg entry of its row's
+//      -> lookup_wide_kernel: per pixel, the fg or bg entry of its row's
 //         (2, bins) table at the pixel's bucket, 0 on void.  The backward.
 //
 // Bucket of an error e in a row with (emax, inv_w): trunc(clip((emax - e) *
@@ -47,12 +47,24 @@
 //      the scale plus its float part in double, rounded once: the sums come
 //      out within ~1e-7 of a float64 sum, where a float32 sum of a crowded
 //      bucket (millions of errors) drifts by ~1e-4.
-//   F  A block stages its row's (2, bins) table in shared memory once and
-//      walks `chunk` pixels.  Above 16384 bins the table (8 B a bucket)
-//      outgrows a block's shared memory and the block reads it through the
-//      read-only path (__ldg) from L2 instead: a row's table is 2^19 bytes
-//      at 65536 bins.  The output is tab * valid, as in the plain version,
-//      so signed zeros agree too.
+//   F  Blocks of 1024 threads walk tiles of kLookupTile pixels; each thread
+//      takes 4 consecutive pixels a step (one 16-byte error load, one 4-byte
+//      fg load, one 16-byte store where 4 | P and the pointers align; scalar
+//      otherwise), kLookupTile / (4 * 1024) = 2 steps in flight: ~40 KB of
+//      loads in flight a block, where the memory rate needs ~15 KB an SM.  Up
+//      to 16384 bins a persistent grid (as many blocks as the occupancy
+//      calculator fits on the SMs at once) lets block b walk the contiguous
+//      tiles [b T / G, (b + 1) T / G) of the row-major order, and the block
+//      stages a row's table in shared memory when its walk reaches that row:
+//      at 63 rows of 2^22 and 16384 bins about 132 + 63 stagings of 128 KB,
+//      where one block a chunk of the row made 2016 with nothing to overlap
+//      them.  Above 16384 bins the table (8 B a bucket) outgrows a block's
+//      shared memory and is read through the read-only path (__ldg), one block
+//      a tile: the blocks start in row-major order, so those in flight work on
+//      one or two rows and their tables (2^19 bytes a row at 65536 bins) stay
+//      in L2; a random table read costs a 32-byte L2 sector, and there F takes
+//      about 2.3x its bound on uniform errors (PERF.md). The output is tab *
+//      valid, as in the plain version, so signed zeros agree too.
 // Above 2^24 bins float32 cannot name bucket bins - 1 (bins - 1 rounds to
 // bins), so the paths above 8192 (E) and 16384 (F) clamp the bucket id to
 // bins - 1 after the conversion, which changes nothing below 2^24; the
@@ -60,9 +72,10 @@
 // then 48 GB), and the plain versions index out of range above 2^24.
 // Bound (H100 SXM, 3.35 TB/s): E reads 4 bytes of error and 1 of fg per
 // pixel, F those and writes 4: at 63 rows of 2^22, ~0.39 and ~0.71 ms.  On
-// one H100 80GB HBM3 at 700 W (PERF.md): E 0.667 ms on uniform errors,
-// 0.662 and 0.754 on clustered ones; F 0.876 ms.  At 16384 and 65536 bins
-// the times stand in PERF.md beside their bounds.
+// one H100 80GB HBM3 at 700 W (PERF.md): E 0.666 ms on uniform errors,
+// 0.662 and 0.754 on clustered ones; F ~0.85 ms at 1024 and 16384 bins on
+// every law.  The times at every bin count stand in PERF.md beside their
+// bounds.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,7 +86,8 @@ constexpr int HIST_THREADS = 512;
 // Above kRangeBins a block's 192 KB of shared memory leaves one block an SM:
 // it takes 1024 threads, each with 4 loads in flight
 constexpr int kRangedThreads = 1024;
-constexpr int LOOKUP_THREADS = 256;
+constexpr int kWideThreads = 1024;       // F's threads a block
+constexpr int kLookupTile = 8192;        // pixels a tile: 2 steps of 4 pixels a thread
 constexpr float VALID_THRESH = -1e29f;
 constexpr int kRangeBins = 8192;         // E: buckets a block keeps, 24 B each in shared memory
 constexpr int kStagedLookupBins = 16384;  // F: stages its (2, bins) table up to here, 8 B a bucket
@@ -298,39 +312,87 @@ __global__ void hist_finalize_kernel(const unsigned long long* __restrict__ g_fi
   o[3 * B] = (float)s_f;
 }
 
-// Kernel F.  Grid (rows, blocks per row).  kStaged (bins <=
-// kStagedLookupBins): the row's table in shared memory; otherwise read
-// through the read-only path from L2.
+// One pixel's weight from its row's table (shared memory where kStaged, else
+// read through __ldg).
 template <bool kStaged>
-__global__ void __launch_bounds__(LOOKUP_THREADS) lookup_kernel(
-    const float* __restrict__ err, const unsigned char* __restrict__ fg,
-    const float* __restrict__ emax, const float* __restrict__ inv_w,
-    const float* __restrict__ tables, long long P, int bins, long long chunk,
-    float* __restrict__ out) {
-  extern __shared__ float tab[];  // [2][bins]: fg weights, then bg weights
-  const long long row = blockIdx.x;
-  const float* t_row = tables + row * 2 * bins;
-  if constexpr (kStaged) {
-    for (int i = threadIdx.x; i < 2 * bins; i += LOOKUP_THREADS) tab[i] = t_row[i];
-    __syncthreads();
-  }
+struct LookupRow {
+  const float* tab;
+  float em, iw;
+  int bins;
 
-  const float em = emax[row];
-  const float iw = inv_w[row];
-  const float* e_row = err + row * P;
-  const unsigned char* f_row = fg + row * P;
-  float* o_row = out + row * P;
-  const long long start = (long long)blockIdx.y * chunk;
-  const long long end = start + chunk < P ? start + chunk : P;
-  for (long long p = start + threadIdx.x; p < end; p += LOOKUP_THREADS) {
-    const float e = e_row[p];
+  __device__ __forceinline__ float operator()(float e, unsigned is_fg) const {
     const float valid = e > VALID_THRESH ? 1.f : 0.f;
     if constexpr (kStaged) {
       const int b = bucket_id(e, em, iw, bins);
-      o_row[p] = tab[f_row[p] ? b : bins + b] * valid;
+      return tab[is_fg ? b : bins + b] * valid;
     } else {
       const int b = bucket_id_wide(e, em, iw, bins);
-      o_row[p] = __ldg(&t_row[f_row[p] ? b : bins + b]) * valid;
+      return __ldg(&tab[is_fg ? b : bins + b]) * valid;
+    }
+  }
+};
+
+// Kernel F: G blocks over the T = rows * ceil(P / kLookupTile) tiles in
+// row-major order, block b taking the contiguous tiles [b T / G, (b + 1) T /
+// G).  kStaged (bins <= kStagedLookupBins; G as many blocks as fit the SMs):
+// a block stages a row's table when its walk reaches that row.
+// Otherwise (G = T: a tile a block) it reads the table from L2.  vec: 4 | P
+// and aligned pointers (16-byte error loads and stores, 4-byte fg loads).
+template <bool kStaged>
+__global__ void __launch_bounds__(kWideThreads) lookup_wide_kernel(
+    const float* __restrict__ err, const unsigned char* __restrict__ fg,
+    const float* __restrict__ emax, const float* __restrict__ inv_w,
+    const float* __restrict__ tables, long long rows, long long P, int bins, int vec,
+    float* __restrict__ out) {
+  constexpr int kSteps = kLookupTile / (4 * kWideThreads);  // 4-pixel steps a thread a tile
+  extern __shared__ __align__(16) float s_tab[];  // kStaged: [2][bins]
+  const long long per_row = (P + kLookupTile - 1) / kLookupTile;
+  const long long tiles = rows * per_row;
+  const long long t_end = (blockIdx.x + 1LL) * tiles / gridDim.x;
+  long long staged_row = -1;
+  for (long long t = blockIdx.x * tiles / gridDim.x; t < t_end; ++t) {
+    const long long row = t / per_row;
+    const float* t_row = tables + row * 2 * bins;
+    if constexpr (kStaged) {
+      if (row != staged_row) {  // the same in every thread of the block
+        __syncthreads();        // every thread is done with the last row's table
+        const int n4 = vec && bins % 2 == 0 ? bins / 2 : 0;  // 16-byte loads of the table
+        for (int i = threadIdx.x; i < n4; i += kWideThreads)
+          reinterpret_cast<float4*>(s_tab)[i] = __ldg(reinterpret_cast<const float4*>(t_row) + i);
+        for (int i = 4 * n4 + threadIdx.x; i < 2 * bins; i += kWideThreads)
+          s_tab[i] = __ldg(t_row + i);
+        __syncthreads();
+        staged_row = row;
+      }
+    }
+    const LookupRow<kStaged> look{kStaged ? s_tab : t_row, emax[row], inv_w[row], bins};
+    const long long start = (t - row * per_row) * kLookupTile;
+    const long long n = start + kLookupTile < P ? kLookupTile : P - start;
+    const float* e_row = err + row * P + start;
+    const unsigned char* f_row = fg + row * P + start;
+    float* o_row = out + row * P + start;
+    if (vec) {  // n is a multiple of 4
+      const int n4 = int(n / 4);
+      float4 e[kSteps];
+      unsigned f[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int v = threadIdx.x + u * kWideThreads;
+        if (v < n4) {
+          e[u] = __ldg(reinterpret_cast<const float4*>(e_row) + v);
+          f[u] = __ldg(reinterpret_cast<const unsigned*>(f_row) + v);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int v = threadIdx.x + u * kWideThreads;
+        if (v < n4)
+          reinterpret_cast<float4*>(o_row)[v] =
+              make_float4(look(e[u].x, f[u] & 0xffu), look(e[u].y, (f[u] >> 8) & 0xffu),
+                          look(e[u].z, (f[u] >> 16) & 0xffu), look(e[u].w, f[u] >> 24));
+      }
+    } else {
+      for (int p = threadIdx.x; p < n; p += kWideThreads) o_row[p] = look(e_row[p], f_row[p]);
     }
   }
 }
@@ -399,19 +461,36 @@ int ee_hist2d_weighted(const void* errors, const void* fg, const void* emax,
 // (rows, P) f32; bins up to 2^30.  Returns cudaGetLastError().
 int ee_table_lookup(const void* errors, const void* fg, const void* emax, const void* inv_w,
                     const void* tables, long long rows, long long P, long long bins,
-                    long long chunk, void* out, void* stream) {
-  dim3 grid;
-  if (bins < 1 || bins > kMaxBins || chunk < 1 || !grid_of(rows, P, chunk, &grid))
+                    void* out, void* stream) {
+  if (bins < 1 || bins > kMaxBins || rows <= 0 || P <= 0 || rows > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   const bool staged = bins <= kStagedLookupBins;
   const size_t smem = staged ? 8 * (size_t)bins : 0;
-  auto* kernel = staged ? lookup_kernel<true> : lookup_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, LOOKUP_THREADS, smem, (cudaStream_t)stream>>>(
+  auto* kernel = staged ? lookup_wide_kernel<true> : lookup_wide_kernel<false>;
+  if ((err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return (int)err;
+  const long long tiles = rows * ((P + kLookupTile - 1) / kLookupTile);
+  long long blocks = tiles;  // from L2: one block a tile, dispatched in row-major order
+  if (staged) {  // a persistent grid, as many blocks as fit the SMs at once
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWideThreads,
+                                                             smem)) != cudaSuccess)
+      return (int)err;
+    blocks = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
+  }
+  const int vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(errors) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(fg) % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(tables) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (blocks < 1 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kWideThreads, smem, s>>>(
       (const float*)errors, (const unsigned char*)fg, (const float*)emax, (const float*)inv_w,
-      (const float*)tables, P, (int)bins, chunk, (float*)out);
+      (const float*)tables, rows, P, (int)bins, vec, (float*)out);
   return (int)cudaGetLastError();
 }
 

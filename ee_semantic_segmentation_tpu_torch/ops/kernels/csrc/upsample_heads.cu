@@ -22,15 +22,11 @@
 // Wh @ X, then t1 @ Ww^T).  FP32 FFMA only, no tensor cores: the JAX kernel
 // pins full f32 so argmax near-ties stay stable.  The argmax keeps the first
 // maximum (strict >), like jnp.argmax.
-//   A and C take one thread per output pixel, which reads the 2x2 low-res
-//     taps of every class from device memory (4 C loads at a C-float
-//     stride) and redoes the row interpolation of a (row, low-res column)
-//     for each of the ~W/w output columns that share it.
-//   A counts into a per-block shared int32 [3][C] histogram, then one global
-//     atomicAdd per bin and block into an int32 (3, C) buffer: integer
-//     atomics make the counts exact and deterministic (f32 sums stop being
-//     exact above 2^24 pixels per class).
-//   C writes the label and nothing else.
+//   C takes one thread per output pixel, which reads the 2x2 low-res taps
+//     of every class from device memory (4 C loads at a C-float stride) and
+//     redoes the row interpolation of a (row, low-res column) for each of
+//     the ~W/w output columns that share it; it writes the label and
+//     nothing else.
 //   B takes one block per (image, band of 4 output rows, output columns:
 //     all of them where they fit).  The block first forms its band's row
 //     interpolation once, t[r][x][c] for its rows and the low-res columns
@@ -51,6 +47,23 @@
 //     == 0.  Each block writes its entropy sum (fixed order) to an (N,
 //     tiles) scratch; a second kernel sums each row in double in a fixed
 //     order, so the result is deterministic.
+//   A takes B's tiling, staging and grouped walk over the rows n < count,
+//     with the argmax pass alone (pixels_argmax, which B's first pass is).
+//     Each group reads its 4 labels as one 16-byte load where W % 4 == 0
+//     (scalar loads otherwise) and forms TP (label == argmax), FP (the
+//     argmax's class, when the label is another class or void: outside
+//     [0, C), VOC's 255 included) and FN (the label's class, when it is a
+//     class).  Each pixel adds its one or two counts to a per-block shared
+//     int32 [3][C] histogram with shared integer atomicAdds.  On a trained
+//     model most of a warp's 128 pixels share one key (TP of the
+//     background), and those same-address integer atomics cost no more than
+//     scattered ones (PERF.md: the same time on both laws); merging the keys
+//     first, in the thread and across the warp (__match_any_sync,
+//     __reduce_add_sync), made the kernel 2.7x as slow on uniform logits
+//     and 1.4x on a trained model's.  One global atomicAdd
+//     per nonzero bin and block into an int32 (3, C) buffer: integer atomics
+//     make the counts exact and deterministic (f32 sums stop being exact
+//     above 2^24 pixels per class).
 //
 // Bound at the flagship shape (N=16, h=w=64, C=21, H=W=512; H100 SXM,
 // 3.35 TB/s, 67 TFLOP/s f32), estimated from the shapes:
@@ -63,7 +76,7 @@
 //   C reads 5.5 MB and writes 16.8 MB of label maps: ~6.7 us of memory, the
 //     same ~6-8 us of FP32 as A.
 // The measured times sit beside these in PERF.md.  B's staged walk
-// (stage_band_rows) is written so that A and C can take it next.
+// (stage_band_rows) is written so that C can take it next, as A has.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -145,40 +158,8 @@ __device__ __forceinline__ int taps_argmax(const PixelTaps<T>& taps, int C) {
   return pred;
 }
 
-// Kernel A.  Grid: count * blocks_per_img blocks; block b covers pixels
+// Kernel C.  Grid: N * blocks_per_img blocks; block b covers pixels
 // [THREADS * (b % blocks_per_img), +THREADS) of image b / blocks_per_img.
-// Rows n >= count get no block at all.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) up_argmax_conf_kernel(
-    const T* __restrict__ logits, const int* __restrict__ labels,
-    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
-    const int2* __restrict__ col_idx, const float2* __restrict__ col_w,
-    int h, int w, int C, int H, int W, int blocks_per_img, int* __restrict__ counts) {
-  extern __shared__ int hist[];  // [3][C]: TP, FP, FN
-  for (int i = threadIdx.x; i < 3 * C; i += THREADS) hist[i] = 0;
-  __syncthreads();
-
-  const int n = blockIdx.x / blocks_per_img;
-  const int p = (blockIdx.x - n * blocks_per_img) * THREADS + threadIdx.x;
-  const int HW = H * W;
-  if (p < HW) {
-    const PixelTaps<T> taps = pixel_taps(logits + (size_t)n * h * w * C, p, w, C, W,
-                                         row_idx, row_w, col_idx, col_w);
-    const int pred = taps_argmax(taps, C);
-    const int lab = labels[(size_t)n * HW + p];
-    if (lab == pred) {
-      atomicAdd(&hist[pred], 1);                          // TP
-    } else {
-      atomicAdd(&hist[C + pred], 1);                      // FP: truth is another class or void
-      if (lab >= 0 && lab < C) atomicAdd(&hist[2 * C + lab], 1);  // FN
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < 3 * C; i += THREADS)
-    if (hist[i]) atomicAdd(&counts[i], hist[i]);
-}
-
-// Kernel C.  Same grid layout as A over all N rows.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) up_argmax_kernel(
     const T* __restrict__ logits,
@@ -194,13 +175,14 @@ __global__ void __launch_bounds__(THREADS) up_argmax_kernel(
   labels_out[(size_t)n * HW + p] = taps_argmax(taps, C);
 }
 
-// Kernel B's tiling: a block takes one (image, band of th output rows, tile
-// of tw output columns).  Its rows interpolated, t[r][x][c] = wr0 * X[r0][x][c]
-// + wr1 * X[r1][x][c] for the band's th output rows and the span of low-res
-// columns its tw output columns reach, live in dynamic shared memory (th *
-// span * C floats).  tw = W where that fits kStageBytes (the flagship: th = 4,
-// span = w = 64, C = 21: 21.5 KB), else th, then tw, is halved; the whole
-// card's shared memory is the last resort.
+// Kernels B's and A's tiling: a block takes one (image, band of th output
+// rows, tile of tw output columns).  Its rows interpolated, t[r][x][c] = wr0 *
+// X[r0][x][c] + wr1 * X[r1][x][c] for the band's th output rows and the span
+// of low-res columns its tw output columns reach, live in dynamic shared
+// memory (th * span * C floats), followed by `extra` bytes (A's [3][C]
+// counts; none for B).  tw = W where that fits kStageBytes (the flagship:
+// th = 4, span = w = 64, C = 21: 21.5 KB), else th, then tw, is halved; the
+// whole card's shared memory is the last resort.
 constexpr int kBandRows = 4;
 constexpr int kEntThreads = 256;
 constexpr int kStageBytes = 96 * 1024;
@@ -220,14 +202,14 @@ int tile_span(int w, int W, int tw) {
   return span < w ? (int)span : w;
 }
 
-int ent_tiling(int w, int C, int H, int W, EntTiling* t) {
+int ent_tiling(int w, int C, int H, int W, int extra, EntTiling* t) {
   if (H < 1 || W < 1 || w < 1 || C < 1) return 0;
   const int budgets[2] = {kStageBytes, kMaxStageBytes};
   for (int budget : budgets)
     for (int tw = W;; tw = tw >= W ? 1 << (31 - __builtin_clz((unsigned)W - 1u)) : tw / 2) {
       for (int th = kBandRows; th >= 1; th /= 2) {
         const int span = tile_span(w, W, tw);
-        if ((long long)th * span * C * 4 <= budget) {
+        if ((long long)th * span * C * 4 + extra <= budget) {
           *t = EntTiling{th, tw, span, (H + th - 1) / th, (W + tw - 1) / tw};
           return 1;
         }
@@ -277,7 +259,7 @@ __device__ __forceinline__ void store_run(float* p, const float* v) {
 // output rows do not decrease, so a thread keeps the last two low-res rows
 // it read (lo, hi) and reads each distinct row of the band once: 2-3 rows
 // for 4 output rows at the flagship's 8x.  16-byte loads and stores where
-// the runs are aligned.  Kernels A and C can stage the same way.
+// the runs are aligned.  Kernels B and A stage so; C can too.
 template <typename T, int V>
 __device__ __forceinline__ void stage_columns(const T* img, int w, int C, int lx0,
                                               const int2* __restrict__ row_idx,
@@ -337,20 +319,13 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // NP output pixels that share their two row-interpolated taps a and b (C
 // values each; at the flagship's 8x, the 4 pixels of an aligned group do),
-// with column weights wc0[p], wc1[p].  Pass 1: v = wc0 * a + wc1 * b
-// (PixelTaps::value's association) and the first maximum (strict >, like
-// jnp.argmax) into arg[p].  Pass 2: the softmax entropy log z - s / z with
-// z = sum 2^d, s = sum 2^d d, d = (v - max) log2(e) formed as
-// (wc0 log2e) a + ((wc1 log2e) b - max log2e), so ln z - ln 2 s / z: one
-// ex2.approx (SFU) a class.  Each pass reads a and b once for all NP
-// pixels; nothing is kept per class, so any C takes the same two passes.
-// Returns the NP entropies' sum.
+// with column weights wc0[p], wc1[p]: v = wc0 * a + wc1 * b
+// (PixelTaps::value's association), and each pixel's first maximum (strict
+// >, like jnp.argmax) into m[p] and its class into best[p].  One walk over
+// the classes reads a and b once for all NP pixels.  Kernels A and B.
 template <int NP>
-__device__ __forceinline__ float pixels_entropy_argmax(const float* a, const float* b,
-                                                       const float* wc0, const float* wc1, int C,
-                                                       int* arg) {
-  float m[NP], w0[NP], w1[NP], nm[NP], z[NP], s[NP];
-  int best[NP];
+__device__ __forceinline__ void pixels_argmax(const float* a, const float* b, const float* wc0,
+                                              const float* wc1, int C, float* m, int* best) {
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     m[p] = wc0[p] * a[0] + wc1[p] * b[0];
@@ -367,6 +342,21 @@ __device__ __forceinline__ float pixels_entropy_argmax(const float* a, const flo
       }
     }
   }
+}
+
+// Pass 1 of kernel B: pixels_argmax into arg[p].  Pass 2: the softmax
+// entropy log z - s / z with z = sum 2^d, s = sum 2^d d, d = (v - max)
+// log2(e) formed as (wc0 log2e) a + ((wc1 log2e) b - max log2e), so ln z -
+// ln 2 s / z: one ex2.approx (SFU) a class.  Each pass reads a and b once
+// for all NP pixels; nothing is kept per class, so any C takes the same two
+// passes.  Returns the NP entropies' sum.
+template <int NP>
+__device__ __forceinline__ float pixels_entropy_argmax(const float* a, const float* b,
+                                                       const float* wc0, const float* wc1, int C,
+                                                       int* arg) {
+  float m[NP], w0[NP], w1[NP], nm[NP], z[NP], s[NP];
+  int best[NP];
+  pixels_argmax<NP>(a, b, wc0, wc1, C, m, best);
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
     w0[p] = wc0[p] * kLog2e;
@@ -491,6 +481,90 @@ __global__ void __launch_bounds__(THREADS) ent_finalize_kernel(
   }
 }
 
+// Kernel A.  Grid: count * bands * ctiles blocks (ent_tiling with the counts'
+// 12 C bytes); block i takes tile i % (bands * ctiles) of image i / (bands *
+// ctiles), band-major, as B does: rows n >= count get no block.  It stages
+// its rows, then each thread takes groups of 4 consecutive output pixels of
+// a row and their labels (one 16-byte load where lvec: W % 4 == 0 and the
+// labels 16-byte aligned) and counts each pixel with one or two shared
+// atomicAdds.
+template <typename T>
+__global__ void __launch_bounds__(kEntThreads) up_argmax_conf_kernel(
+    const T* __restrict__ logits, const int* __restrict__ labels,
+    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
+    const int2* __restrict__ col_idx, const float2* __restrict__ col_w,
+    int h, int w, int C, int H, int W, EntTiling tl, int lvec, int* __restrict__ counts) {
+  extern __shared__ __align__(16) float t_s[];  // [rows][run], then [3][C] int32
+  int* hist = reinterpret_cast<int*>(t_s + tl.th * tl.span * C);  // TP, FP, FN
+  for (int i = threadIdx.x; i < 3 * C; i += kEntThreads) hist[i] = 0;
+  const int tiles = tl.bands * tl.ctiles;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int band = tile / tl.ctiles;
+  const int y0 = band * tl.th, x0 = (tile - band * tl.ctiles) * tl.tw;
+  const int rows = min(tl.th, H - y0), cols = min(tl.tw, W - x0);
+  const int lx0 = col_idx[x0].x;
+  const int run = (col_idx[x0 + cols - 1].y - lx0 + 1) * C;  // <= span * C
+  const T* img = logits + (size_t)n * h * w * C;
+  stage_band_rows(img, w, C, row_idx + y0, row_w + y0, rows, lx0, run, t_s);
+  __syncthreads();
+
+  const int gw = (cols + 3) / 4;  // groups of 4 output columns a row
+  const int groups = rows * gw;
+  const int* lab_img = labels + (size_t)n * H * W;
+  for (int g = threadIdx.x; g < groups; g += kEntThreads) {
+    const int r = g / gw;
+    const int xg = x0 + 4 * (g - r * gw);
+    const int nx = min(4, x0 + cols - xg);  // pixels in the group
+    const int* src = lab_img + (size_t)(y0 + r) * W + xg;
+    int truth[4];
+    if (lvec) {  // then nx == 4
+      const int4 q = __ldg(reinterpret_cast<const int4*>(src));
+      truth[0] = q.x; truth[1] = q.y; truth[2] = q.z; truth[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) truth[j] = j < nx ? __ldg(src + j) : -1;
+    }
+    const float* t_row = t_s + r * run;
+    const int2 c0 = col_idx[xg], c3 = col_idx[xg + nx - 1];
+    float m[4];
+    int pred[4] = {0, 0, 0, 0};
+    if (c0.x == c3.x && c0.y == c3.y && nx == 4) {  // one pair of taps for all 4
+      float w0[4], w1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 cw = col_w[xg + j];
+        w0[j] = cw.x;
+        w1[j] = cw.y;
+      }
+      pixels_argmax<4>(t_row + (c0.x - lx0) * C, t_row + (c0.y - lx0) * C, w0, w1, C, m, pred);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < nx) {
+          const int2 ci = col_idx[xg + j];
+          const float2 cw = col_w[xg + j];
+          pixels_argmax<1>(t_row + (ci.x - lx0) * C, t_row + (ci.y - lx0) * C, &cw.x, &cw.y, C,
+                           &m[j], &pred[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < nx) {
+        const int p = pred[j], t = truth[j];
+        if (t == p) {
+          atomicAdd(&hist[p], 1);                                // TP
+        } else {
+          atomicAdd(&hist[C + p], 1);                            // FP: truth is another class or void
+          if (t >= 0 && t < C) atomicAdd(&hist[2 * C + t], 1);  // FN
+        }
+      }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 3 * C; i += kEntThreads)
+    if (hist[i]) atomicAdd(&counts[i], hist[i]);
+}
+
 int grid_blocks(int rows, int H, int W, int* blocks_per_img) {
   const long long bpi = ((long long)H * W + THREADS - 1) / THREADS;
   const long long total = bpi * rows;
@@ -514,21 +588,31 @@ int ee_upsample_argmax_confusion(
     const void* logits, int is_bf16,
     const void* row_idx, const void* row_w, const void* col_idx, const void* col_w,
     const void* labels, int count, int h, int w, int C, int H, int W, void* counts, void* stream) {
-  int bpi = 0;
-  const int blocks = grid_blocks(count, H, W, &bpi);
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)C * sizeof(int);
+  EntTiling tl;
+  const int extra = 3 * C * (int)sizeof(int);
+  if (count < 1 || h < 1 || !ent_tiling(w, C, H, W, extra, &tl)) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)tl.bands * tl.ctiles;
+  if (tiles * count > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tl.th * tl.span * C * sizeof(float) + extra;
+  const int lvec = W % 4 == 0 && reinterpret_cast<uintptr_t>(labels) % 16 == 0;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   if (is_bf16) {
-    up_argmax_conf_kernel<__nv_bfloat16><<<blocks, THREADS, smem, s>>>(
+    err = cudaFuncSetAttribute(up_argmax_conf_kernel<__nv_bfloat16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    up_argmax_conf_kernel<__nv_bfloat16><<<(unsigned)(tiles * count), kEntThreads, smem, s>>>(
         (const __nv_bfloat16*)logits, (const int*)labels, (const int2*)row_idx,
         (const float2*)row_w, (const int2*)col_idx, (const float2*)col_w,
-        h, w, C, H, W, bpi, (int*)counts);
+        h, w, C, H, W, tl, lvec, (int*)counts);
   } else {
-    up_argmax_conf_kernel<float><<<blocks, THREADS, smem, s>>>(
+    err = cudaFuncSetAttribute(up_argmax_conf_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    up_argmax_conf_kernel<float><<<(unsigned)(tiles * count), kEntThreads, smem, s>>>(
         (const float*)logits, (const int*)labels, (const int2*)row_idx,
         (const float2*)row_w, (const int2*)col_idx, (const float2*)col_w,
-        h, w, C, H, W, bpi, (int*)counts);
+        h, w, C, H, W, tl, lvec, (int*)counts);
   }
   return (int)cudaGetLastError();
 }
@@ -559,7 +643,7 @@ int ee_upsample_argmax(
 // tiling fits shared memory.
 int ee_ent_partials_per_image(int h, int w, int C, int H, int W) {
   EntTiling t;
-  return h >= 1 && ent_tiling(w, C, H, W, &t) ? t.bands * t.ctiles : 0;
+  return h >= 1 && ent_tiling(w, C, H, W, 0, &t) ? t.bands * t.ctiles : 0;
 }
 
 // logits (N, h, w, C) -> labels_out (N, H, W) int32, ent_out (N,) f32;
@@ -571,7 +655,7 @@ int ee_upsample_entropy_argmax(
     int N, int h, int w, int C, int H, int W, float inv_norm,
     void* labels_out, void* partial, void* ent_out, void* stream) {
   EntTiling tl;
-  if (N < 1 || h < 1 || !ent_tiling(w, C, H, W, &tl)) return (int)cudaErrorInvalidValue;
+  if (N < 1 || h < 1 || !ent_tiling(w, C, H, W, 0, &tl)) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)tl.bands * tl.ctiles;
   if (tiles * N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)tl.th * tl.span * C * sizeof(float);

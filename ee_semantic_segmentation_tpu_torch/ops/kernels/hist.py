@@ -18,10 +18,10 @@ are per row, and a pixel's bucket is ``trunc(clip((emax - e) * inv_w, 0,
 bins - 1))``.  ``bins`` is 128 times a power of two (``hist_bins_ok``), as
 in the JAX package, with no upper limit: the CUDA kernels take every such
 count (kernel E keeps ``range_bins()`` = 8192 buckets a block and takes
-more in ranges of that many; kernel F reads its table from L2 once it
-outgrows shared memory).  Up to 2^30 buckets they run; above, one row's
-output and scratch alone (48 bytes a bucket) exceed an H100's 80 GB and
-``torch.empty`` raises first.
+more in ranges of that many; kernel F stages a row's table in shared memory
+up to 16384 buckets and reads it from L2 above).  Up to 2^30 buckets they
+run; above, one row's output and scratch alone (48 bytes a bucket) exceed
+an H100's 80 GB and ``torch.empty`` raises first.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
 plain version (``*_plain``: one ``scatter_add_`` per histogram, one
@@ -106,11 +106,11 @@ def _check(errors, fg, emax, inv_w, bins: int, tables=None) -> None:
                              f"got {tuple(t.shape)} on {t.device}")
 
 
-def _chunk(bins: int, least: int, per_bin: int) -> int:
-    """Pixels per block: enough that a block's share of the row outweighs
-    the per-bucket work it does once (E's atomics, F's table staging), for
-    the at most ``range_bins()`` buckets a block of E keeps."""
-    return max(least, per_bin * min(bins, range_bins()))
+def _hist_chunk(bins: int) -> int:
+    """Pixels a block of kernel E: enough that a block's share of the row
+    outweighs the atomics it adds to the row's totals once per bucket, for
+    the at most ``range_bins()`` buckets a block keeps."""
+    return max(1 << 16, 64 * min(bins, range_bins()))
 
 
 def hist2d_weighted(errors: torch.Tensor, fg: torch.Tensor, emax: torch.Tensor,
@@ -132,7 +132,7 @@ def hist2d_weighted(errors: torch.Tensor, fg: torch.Tensor, emax: torch.Tensor,
     with torch.cuda.device(errors.device):
         err = lib.ee_hist2d_weighted(
             errors.data_ptr(), fg.data_ptr(), emax.data_ptr(), inv_w.data_ptr(), rows, P, bins,
-            _chunk(bins, 1 << 16, 64), scratch.data_ptr(), out.data_ptr(),
+            _hist_chunk(bins), scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "hist2d_weighted")
     hist2d_weighted.launches += 1
@@ -156,7 +156,7 @@ def table_lookup(errors: torch.Tensor, fg: torch.Tensor, emax: torch.Tensor,
     with torch.cuda.device(errors.device):
         err = lib.ee_table_lookup(
             errors.data_ptr(), fg.data_ptr(), emax.data_ptr(), inv_w.data_ptr(),
-            tables.data_ptr(), rows, P, bins, _chunk(bins, 1 << 15, 16), out.data_ptr(),
+            tables.data_ptr(), rows, P, bins, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "table_lookup")
     table_lookup.launches += 1

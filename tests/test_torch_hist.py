@@ -119,6 +119,31 @@ def test_lookup_plain_matches_jax_above_8192_bins(bins, law):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("law", [None, "trained"])
+def test_lookup_plain_matches_jax_at_65536_bins_on_a_ragged_row(law, pallas):
+    """Bit for bit at 65536 bins, where kernel F reads its table from L2 on
+    the card, on rows of 2 * 67 * 101 pixels (not a multiple of 4: F's
+    scalar path; the JAX kernel's last 4096-pixel chunk ragged), uniform-ish
+    and crowded, against the JAX gather and the JAX Pallas kernel
+    (interpret)."""
+    bins, P = 65536, 2 * 67 * 101
+    if law is None:
+        errors, fg, _, emax, inv_w = _rows(2, P, bins, seed=7)
+    else:
+        errors, fg, _, emax, inv_w = _lovasz_rows(2, P, bins, law, seed=7)
+    tables = np.random.RandomState(4).randn(2, 2, bins).astype(np.float32)
+    args = _jax_args(errors, fg, emax, inv_w) + (jnp.asarray(tables),)
+    if pallas:
+        want = np.asarray(JH.table_lookup_pallas(*args, bins=bins, interpret=True))
+    else:
+        want = np.asarray(JH.table_lookup_jnp(*args, bins=bins))
+    got = TH.table_lookup(*_port_args(errors, fg, emax, inv_w), torch.from_numpy(tables),
+                          bins=bins).numpy()
+    assert got.shape == (2, P) and (got == 0).mean() < 0.2
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("R,P,bins", [(2, 5000, 128), (3, 3000, 256)])
 def test_hist_plain_matches_jax_pallas_interpret(R, P, bins):
     """Several 4096-pixel chunks, the last one ragged."""

@@ -76,6 +76,35 @@ def test_confusion_plain_matches_jax_kernel(shape, out_hw, count):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("law,shape,out_hw,count", [
+    ("trained", (3, 8, 8, 21), (64, 64), 2),     # the flagship's 8x, count < N
+    ("trained", (4, 8, 16, 21), (64, 128), 1),
+    ("uniform", (2, 8, 8, 21), (64, 64), 2),     # uniform logits, VOC's 255 void
+])
+def test_confusion_plain_matches_jax_kernel_on_voc_labels(law, shape, out_hw, count):
+    """upsample_argmax_confusion on labels with VOC's 255 void (5 %), on a
+    trained model's law (``chip_smoke.trained_conf_law``: mostly background,
+    the argmax right on ~89 % of the pixels) and on uniform logits: exactly
+    equal counts, the rows n >= count left out."""
+    import chip_smoke
+
+    N, h, w, C = shape
+    if law == "trained":
+        x, labels = chip_smoke.trained_conf_law(N, h, w, *out_hw, C, seed=N)
+    else:
+        rng = np.random.RandomState(9)
+        x = (2 * rng.randn(*shape)).astype(np.float32)
+        labels = rng.randint(0, C, (N, *out_hw)).astype(np.int32)
+        labels[rng.rand(N, *out_hw) < 0.05] = 255
+    assert (labels == 255).any() and (labels[:count] == 0).mean() > (0.5 if law == "trained" else 0)
+    want = np.asarray(JU.upsample_argmax_confusion(jnp.asarray(x), jnp.asarray(labels),
+                                                   count, out_hw))
+    got = TU.upsample_argmax_confusion(torch.from_numpy(x), torch.from_numpy(labels),
+                                       count, out_hw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.sum() > 0
+
+
 @pytest.mark.parametrize("shape,out_hw,count", CASES)
 def test_entropy_plain_matches_jax_kernel(shape, out_hw, count):
     """upsample_entropy_argmax: equal label maps; entropy to rtol 1e-5 (the
@@ -170,16 +199,15 @@ def test_pixel_entropy_handles_zero_probabilities():
 @pytest.mark.parametrize("name", list(kernel_variants.VARIANTS))
 def test_kernel_variants_apply_to_the_shipped_sources(name):
     """Each variant of the shipped kernels names text that is in their
-    sources, once; the variants of E's float-sum design and of B's
-    per-pixel design are for an earlier tree's sources (``--csrc``) and do
-    not apply to the shipped text."""
-    src, subs = kernel_variants.VARIANTS[name]
+    sources, once; a variant of an earlier design (``Variant.earlier``:
+    for an earlier tree's sources, given by ``--csrc``) names a line that
+    the shipped sources no longer hold."""
+    src, subs, earlier = kernel_variants.VARIANTS[name]
     text = (_build.CSRC / src).read_text()
-    counts = [text.count(old) for old, _ in subs]
-    if "float-sum design" in name or "per-pixel design" in name:
-        assert not all(counts)
+    if earlier is not None:
+        assert earlier not in text
     else:
-        assert counts == [1] * len(subs)
+        assert subs and [text.count(old) for old, _ in subs] == [1] * len(subs)
 
 
 def test_kernel_variants_needs_a_card():
