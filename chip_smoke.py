@@ -13,13 +13,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. kernel vs plain version on the card (TF32 off), at the flagship eval
    shape (N=16, 64x64 -> 512x512, C=21), a ragged one and the eval's padded
    last batch (count 4 of 12): argmax maps of kernels B and C, confusion
-   counts and entropies must agree; kernel, plain and library times are
-   medians of 20 runs timed with CUDA events, and one call of A split per
-   CUDA kernel; kernel A also on a trained model's logits and labels
-   (``trained_conf_law``: mostly background, ~89 % right, 5 % void),
-   its time within TOL_A_TRAINED_RATIO of the uniform law's; then kernels
-   B and A at their edge cases (40 classes, bf16 logits, H not a multiple
-   of the band, W not a multiple of 4, no resize, column tiles);
+   counts and entropies must agree, and C's maps equal B's; kernel, plain
+   and library times are medians of 20 runs timed with CUDA events, and
+   one call of A and one of C split per CUDA kernel; kernels A and C also
+   on a trained model's logits and labels (``trained_conf_law``: mostly
+   background, ~89 % right, 5 % void), A's time within TOL_A_TRAINED_RATIO
+   and C's within TOL_C_TRAINED_RATIO of the uniform law's; then kernels
+   B, A and C at their edge cases (40 classes, bf16 logits, H not a
+   multiple of the band, W not a multiple of 4, no resize, column tiles),
+   and C where no band fits shared memory (20000 classes: it must raise);
 3b. the sort kernel D vs its plain version (TF32 off) at the flagship's
    Lovász row shapes (63 rows of 2^22, 1008 of 2^18), one and two tiles,
    1024, a ragged row, heavy ties, +-0/+-NaN/+-inf/+-1e30 keys, int32 keys
@@ -110,6 +112,8 @@ TOL_ENT_RTOL = 1e-4        # entropy: float association and expf vs softmax+log
 TOL_MIOU_ABS = 1e-4        # kernel head vs plain head, per-exit mIoU
 TOL_A_TRAINED_RATIO = 1.2  # kernel A's time on a trained model's logits and
 #                            labels over its time on the uniform law
+TOL_C_TRAINED_RATIO = 1.2  # kernel C's time on a trained model's logits over
+#                            its time on the uniform law
 TOL_HIST_SUM_RTOL = 1e-4   # E's error sums vs the same sums in float64
 #                            (hist_sums_f64): E adds most errors exactly as
 #                            integers (rounding <= 2^-17 an error), the rest
@@ -275,6 +279,7 @@ def kernel_vs_plain(U, torch):
         check(agree >= TOL_MAP_AGREE, f"{tag}: argmax maps agree on {agree:.7f} < {TOL_MAP_AGREE}")
         check(agree_c >= TOL_MAP_AGREE,
               f"{tag}: kernel C's maps agree on {agree_c:.7f} < {TOL_MAP_AGREE}")
+        check(bool(torch.equal(maps_c, maps_k)), f"{tag}: kernel C's maps differ from B's")
         check(conf_l1 <= 3 * n_differ_valid,
               f"{tag}: confusion counts differ by {conf_l1} > 3 x {n_differ_valid} flipped pixels")
         check(ent_rel <= TOL_ENT_RTOL, f"{tag}: entropy rel err {ent_rel:.3g} > {TOL_ENT_RTOL}")
@@ -320,10 +325,31 @@ def kernel_vs_plain(U, torch):
               f"[launches, ms]: {per_kernel_ms(lambda: U.upsample_argmax_confusion(lt, lab_t, count, (H, W)), torch, {'up_argmax_conf_kernel': 1})}")
         check(ratio <= TOL_A_TRAINED_RATIO,
               f"A on the trained law takes {ratio:.3f} x its uniform-law time > {TOL_A_TRAINED_RATIO}")
-    # kernels B's and A's edge cases (A's labels 5 % void, 255): more classes
-    # than 32, bf16 logits, output rows that do not fill the last band,
-    # output columns that do not fill a 16-byte label load or store, no
-    # resize, and rows too wide for one tile of shared memory
+        # kernel C at the flagship, split per CUDA kernel, and on the
+        # trained law's logits: maps checked, time within
+        # TOL_C_TRAINED_RATIO of the uniform law's
+        print(f"[kernel-vs-plain] C at {tag}, one call per CUDA kernel [launches, ms]: "
+              f"{per_kernel_ms(lambda: U.upsample_argmax(logits, (H, W)), torch, {'up_argmax_map_kernel': 1})}")
+        maps_t = U.upsample_argmax(lt, (H, W))
+        maps_tp = U.upsample_argmax_plain(lt, (H, W))
+        agree_t = 1.0 - (maps_t != maps_tp).float().mean().item()
+        same_b = bool(torch.equal(maps_t, U.upsample_entropy_argmax(lt, (H, W))[0]))
+        results["C"]["max_abs_err"] = max(results["C"]["max_abs_err"],
+                                          float((maps_t - maps_tp).abs().max()))
+        ms_t = results["C"]["ms_trained"] = median_ms(lambda: U.upsample_argmax(lt, (H, W)))
+        ratio = ms_t / results["C"]["ms"]
+        print(f"[kernel-vs-plain] C at {tag}, trained law: argmax agree {agree_t:.7f}, equal B's "
+              f"{same_b}; kernel {ms_t:.4f} ms = {ratio:.3f} x the uniform law's "
+              f"{results['C']['ms']:.4f} ms; one call per CUDA kernel [launches, ms]: "
+              f"{per_kernel_ms(lambda: U.upsample_argmax(lt, (H, W)), torch, {'up_argmax_map_kernel': 1})}")
+        check(agree_t >= TOL_MAP_AGREE and same_b,
+              f"C on the trained law: maps agree on {agree_t:.7f}, equal B's {same_b}")
+        check(ratio <= TOL_C_TRAINED_RATIO,
+              f"C on the trained law takes {ratio:.3f} x its uniform-law time > {TOL_C_TRAINED_RATIO}")
+    # kernels B's, A's and C's edge cases (A's labels 5 % void, 255): more
+    # classes than 32, bf16 logits, output rows that do not fill the last
+    # band, output columns that do not fill a 16-byte label load or store,
+    # no resize, and rows too wide for one tile of shared memory
     b_cases = [
         ("C=40, above 32 classes", (2, 16, 16), 40, (128, 128), torch.float32),
         ("bf16 logits, flagship", (16, 64, 64), C, (512, 512), torch.bfloat16),
@@ -341,14 +367,31 @@ def kernel_vs_plain(U, torch):
         maps_k, ent_k = U.upsample_entropy_argmax(logits, (H, W))
         conf_vs_plain(U, torch, tag, logits, labels.cuda(), N, (H, W), maps_k)
         maps_p, ent_p = U.upsample_entropy_argmax_plain(logits, (H, W))
+        maps_c = U.upsample_argmax(logits, (H, W))
         torch.cuda.synchronize()
         agree = 1.0 - (maps_k != maps_p).float().mean().item()
+        agree_c = 1.0 - (maps_c != maps_p).float().mean().item()
         ent_rel = float(((ent_k - ent_p).abs() / ent_p.abs()).max())
         print(f"[kernel-vs-plain] B {tag}: N={N} {h}x{w}->{H}x{W} C={nc} {dtype}: argmax agree "
               f"{agree:.7f} (differing pixels {int((maps_k != maps_p).sum())}); entropy rel "
               f"{ent_rel:.3g}")
+        print(f"[kernel-vs-plain] C {tag}: argmax agree {agree_c:.7f} (differing pixels "
+              f"{int((maps_c != maps_p).sum())}), equal B's {bool(torch.equal(maps_c, maps_k))}")
         check(agree >= TOL_MAP_AGREE, f"B {tag}: argmax maps agree on {agree:.7f} < {TOL_MAP_AGREE}")
         check(ent_rel <= TOL_ENT_RTOL, f"B {tag}: entropy rel err {ent_rel:.3g} > {TOL_ENT_RTOL}")
+        check(agree_c >= TOL_MAP_AGREE, f"C {tag}: argmax maps agree on {agree_c:.7f} < {TOL_MAP_AGREE}")
+        check(bool(torch.equal(maps_c, maps_k)), f"C {tag}: maps differ from B's")
+    # kernel C where not even a band of one output row fits a block's shared
+    # memory: the wrapper raises before it launches or allocates
+    before = U.upsample_argmax.launches
+    try:
+        U.upsample_argmax(torch.zeros((1, 8, 8, 20000), device="cuda"), (64, 64))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    print(f"[kernel-vs-plain] C with 20000 classes, (8, 8) -> (64, 64): raises {raised!r}")
+    check(raised is not None and U.upsample_argmax.launches == before,
+          "C with 20000 classes did not raise ValueError before launching")
     return results
 
 
@@ -1066,7 +1109,7 @@ def main_path(U, torch):
                  ("up_ent_argmax_kernel", "ent_finalize_kernel")),
                 ("C", "eval_br_sim", lambda: br_evaluator_similarity_fused(
                     model, 3, C, one, "ssim", tau, ignore=(C - 1,), pallas_head=True),
-                 ("up_argmax_kernel",)),
+                 ("up_argmax_map_kernel",)),
             ):
                 batch_ms = median_ms(fn, 5, 1)
                 trace = per_kernel_ms(fn, torch, {starts[0]: 3})

@@ -1,6 +1,6 @@
 // Fused bilinear-upsample eval heads for Hopper (sm_90a), plain C interface.
 //
-// Replaces the two TPU (Pallas) kernels of the eval path:
+// Replaces the three TPU (Pallas) kernels of the eval path:
 //   A  ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:
 //      upsample_argmax_confusion (_up_argmax_conf_kernel)
 //      -> up_argmax_conf_kernel: bilinear upsample + argmax + per-class
@@ -10,8 +10,8 @@
 //      -> up_ent_argmax_kernel + ent_finalize_kernel: the same upsample and
 //         argmax, plus each image's mean softmax entropy / log C.
 //   C  ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:
-//      upsample_argmax (_up_argmax_kernel)
-//      -> up_argmax_kernel: the same upsample and argmax, the (N, H, W)
+//      upsample_argmax (its Pallas body at upsample_argmax.py:105)
+//      -> up_argmax_map_kernel: the same upsample and argmax, the (N, H, W)
 //         int32 label map only (the similarity gates read label maps).
 //
 // Design.  The separable resize up_c = Wh @ X_c @ Ww^T has at most two
@@ -22,11 +22,6 @@
 // Wh @ X, then t1 @ Ww^T).  FP32 FFMA only, no tensor cores: the JAX kernel
 // pins full f32 so argmax near-ties stay stable.  The argmax keeps the first
 // maximum (strict >), like jnp.argmax.
-//   C takes one thread per output pixel, which reads the 2x2 low-res taps
-//     of every class from device memory (4 C loads at a C-float stride) and
-//     redoes the row interpolation of a (row, low-res column) for each of
-//     the ~W/w output columns that share it; it writes the label and
-//     nothing else.
 //   B takes one block per (image, band of 4 output rows, output columns:
 //     all of them where they fit).  The block first forms its band's row
 //     interpolation once, t[r][x][c] for its rows and the low-res columns
@@ -47,6 +42,12 @@
 //     == 0.  Each block writes its entropy sum (fixed order) to an (N,
 //     tiles) scratch; a second kernel sums each row in double in a fixed
 //     order, so the result is deterministic.
+//   C takes B's tiling, staging and group walk (label_band) with the
+//     argmax pass alone (pixels_argmax, which B's first pass is): no labels
+//     in, no counts, no entropy, one kernel.  Its maps equal B's bit for
+//     bit.  The walk keeps nothing per class, but a band of one output row
+//     has to fit shared memory: above ~9,700 classes (3-6 low-res columns,
+//     227 KB) no tiling does, and the entry point refuses the call.
 //   A takes B's tiling, staging and grouped walk over the rows n < count,
 //     with the argmax pass alone (pixels_argmax, which B's first pass is).
 //     Each group reads its 4 labels as one 16-byte load where W % 4 == 0
@@ -74,9 +75,10 @@
 //     21 exp and 1 log per pixel are 92 M SFU operations, ~22 us at 16 a
 //     clock per SM (132 SMs, 1.98 GHz): the SFU bounds it.
 //   C reads 5.5 MB and writes 16.8 MB of label maps: ~6.7 us of memory, the
-//     same ~6-8 us of FP32 as A.
-// The measured times sit beside these in PERF.md.  B's staged walk
-// (stage_band_rows) is written so that C can take it next, as A has.
+//     same ~6-8 us of FP32 as A.  Staged, a group of 4 pixels reads 2 C
+//     values from shared memory and each pixel issues ~5 C instructions
+//     (column step, compare, two selects): more time than the bytes take.
+// The measured times sit beside these in PERF.md.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -92,45 +94,6 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
   return __bfloat162float(v);
 }
 
-// The 2x2 low-res taps of one output pixel, for every class.
-template <typename T>
-struct PixelTaps {
-  const T* r0c0;
-  const T* r0c1;
-  const T* r1c0;
-  const T* r1c1;
-  float wr0, wr1, wc0, wc1;
-
-  __device__ __forceinline__ float value(int k) const {
-    const float t0 = wr0 * to_f32(r0c0[k]) + wr1 * to_f32(r1c0[k]);  // rows first
-    const float t1 = wr0 * to_f32(r0c1[k]) + wr1 * to_f32(r1c1[k]);
-    return wc0 * t0 + wc1 * t1;                                       // then columns
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ PixelTaps<T> pixel_taps(
-    const T* img, int p, int w, int C, int W,
-    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
-    const int2* __restrict__ col_idx, const float2* __restrict__ col_w) {
-  const int oy = p / W;
-  const int ox = p - oy * W;
-  const int2 ri = row_idx[oy];
-  const int2 ci = col_idx[ox];
-  const float2 rw = row_w[oy];
-  const float2 cw = col_w[ox];
-  PixelTaps<T> t;
-  t.r0c0 = img + ((size_t)ri.x * w + ci.x) * C;
-  t.r0c1 = img + ((size_t)ri.x * w + ci.y) * C;
-  t.r1c0 = img + ((size_t)ri.y * w + ci.x) * C;
-  t.r1c1 = img + ((size_t)ri.y * w + ci.y) * C;
-  t.wr0 = rw.x;
-  t.wr1 = rw.y;
-  t.wc0 = cw.x;
-  t.wc1 = cw.y;
-  return t;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
@@ -143,46 +106,15 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// The first maximum of the C upsampled values (strict >, like jnp.argmax).
-template <typename T>
-__device__ __forceinline__ int taps_argmax(const PixelTaps<T>& taps, int C) {
-  float best = taps.value(0);
-  int pred = 0;
-  for (int k = 1; k < C; ++k) {
-    const float v = taps.value(k);
-    if (v > best) {
-      best = v;
-      pred = k;
-    }
-  }
-  return pred;
-}
-
-// Kernel C.  Grid: N * blocks_per_img blocks; block b covers pixels
-// [THREADS * (b % blocks_per_img), +THREADS) of image b / blocks_per_img.
-template <typename T>
-__global__ void __launch_bounds__(THREADS) up_argmax_kernel(
-    const T* __restrict__ logits,
-    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
-    const int2* __restrict__ col_idx, const float2* __restrict__ col_w,
-    int h, int w, int C, int H, int W, int blocks_per_img, int* __restrict__ labels_out) {
-  const int n = blockIdx.x / blocks_per_img;
-  const int p = (blockIdx.x - n * blocks_per_img) * THREADS + threadIdx.x;
-  const int HW = H * W;
-  if (p >= HW) return;
-  const PixelTaps<T> taps = pixel_taps(logits + (size_t)n * h * w * C, p, w, C, W,
-                                       row_idx, row_w, col_idx, col_w);
-  labels_out[(size_t)n * HW + p] = taps_argmax(taps, C);
-}
-
-// Kernels B's and A's tiling: a block takes one (image, band of th output
-// rows, tile of tw output columns).  Its rows interpolated, t[r][x][c] = wr0 *
-// X[r0][x][c] + wr1 * X[r1][x][c] for the band's th output rows and the span
-// of low-res columns its tw output columns reach, live in dynamic shared
-// memory (th * span * C floats), followed by `extra` bytes (A's [3][C]
-// counts; none for B).  tw = W where that fits kStageBytes (the flagship:
-// th = 4, span = w = 64, C = 21: 21.5 KB), else th, then tw, is halved; the
-// whole card's shared memory is the last resort.
+// Kernels B's, C's and A's tiling: a block takes one (image, band of th
+// output rows, tile of tw output columns).  Its rows interpolated,
+// t[r][x][c] = wr0 * X[r0][x][c] + wr1 * X[r1][x][c] for the band's th
+// output rows and the span of low-res columns its tw output columns reach,
+// live in dynamic shared memory (th * span * C floats), followed by `extra`
+// bytes (A's [3][C] counts; none for B and C).  tw = W where that fits
+// kStageBytes (the flagship: th = 4, span = w = 64, C = 21: 21.5 KB), else
+// th, then tw, is halved; the whole card's shared memory is the last
+// resort, and where not even th = 1 and tw = 4 fit it, there is no tiling.
 constexpr int kBandRows = 4;
 constexpr int kEntThreads = 256;
 constexpr int kStageBytes = 96 * 1024;
@@ -254,12 +186,13 @@ __device__ __forceinline__ void store_run(float* p, const float* v) {
 
 // The band's rows interpolated into shared memory: for each of its `rows`
 // output rows, the `run` = span * C contiguous values of low-res columns
-// [lx0, lx0 + span) of its two tap rows, t = wr0 * X0 + wr1 * X1 (the
-// expression of PixelTaps::value, rows first).  The tap rows of consecutive
-// output rows do not decrease, so a thread keeps the last two low-res rows
-// it read (lo, hi) and reads each distinct row of the band once: 2-3 rows
-// for 4 output rows at the flagship's 8x.  16-byte loads and stores where
-// the runs are aligned.  Kernels B and A stage so; C can too.
+// [lx0, lx0 + span) of its two tap rows, t = wr0 * X0 + wr1 * X1 (rows
+// first; the column step v = wc0 * t0 + wc1 * t1 follows in pixels_argmax).
+// The tap rows of consecutive output rows do not decrease, so a thread
+// keeps the last two low-res rows it read (lo, hi) and reads each distinct
+// row of the band once: 2-3 rows for 4 output rows at the flagship's 8x.
+// 16-byte loads and stores where the runs are aligned.  Kernels B, C and A
+// stage so.
 template <typename T, int V>
 __device__ __forceinline__ void stage_columns(const T* img, int w, int C, int lx0,
                                               const int2* __restrict__ row_idx,
@@ -319,10 +252,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // NP output pixels that share their two row-interpolated taps a and b (C
 // values each; at the flagship's 8x, the 4 pixels of an aligned group do),
-// with column weights wc0[p], wc1[p]: v = wc0 * a + wc1 * b
-// (PixelTaps::value's association), and each pixel's first maximum (strict
+// with column weights wc0[p], wc1[p]: v = wc0 * a + wc1 * b (columns
+// after rows, the JAX association), and each pixel's first maximum (strict
 // >, like jnp.argmax) into m[p] and its class into best[p].  One walk over
-// the classes reads a and b once for all NP pixels.  Kernels A and B.
+// the classes reads a and b once for all NP pixels.  Kernels A, B and C.
 template <int NP>
 __device__ __forceinline__ void pixels_argmax(const float* a, const float* b, const float* wc0,
                                               const float* wc1, int C, float* m, int* best) {
@@ -383,13 +316,76 @@ __device__ __forceinline__ float pixels_entropy_argmax(const float* a, const flo
   return ent;
 }
 
+// The labels of NP pixels that share their taps into lab[p]: pixels_argmax
+// for C; B (kEnt) takes pixels_entropy_argmax and adds the entropies to ent.
+template <int NP, bool kEnt>
+__device__ __forceinline__ void pixels_labels(const float* a, const float* b, const float* wc0,
+                                              const float* wc1, int C, int* lab, float& ent) {
+  if constexpr (kEnt) {
+    ent += pixels_entropy_argmax<NP>(a, b, wc0, wc1, C, lab);
+  } else {
+    float m[NP];
+    pixels_argmax<NP>(a, b, wc0, wc1, C, m, lab);
+  }
+}
+
+// Kernels B's and C's walk over a staged band (rows output rows from y0,
+// cols output columns from x0; t_s holds `run` values a row from low-res
+// column lx0): each thread takes groups of 4 consecutive output pixels of a
+// row (a warp 128 pixels: ~17 low-res columns, each a broadcast read from
+// shared memory).  Where the 4 share their column taps one walk over the
+// classes serves all 4, else each pixel walks alone.  The 4 labels leave as
+// one 16-byte store where W % 4 == 0.  Returns the thread's entropy sum,
+// taken in a fixed order (B, kEnt; 0 for C).
+template <bool kEnt>
+__device__ __forceinline__ float label_band(const float* t_s, const int2* col_idx,
+                                           const float2* col_w, int C, int W, int y0, int x0,
+                                           int rows, int cols, int lx0, int run, int* lab_img) {
+  float ent = 0.f;
+  const int gw = (cols + 3) / 4;  // groups of 4 output columns a row
+  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {
+    const int r = g / gw;
+    const int xg = x0 + 4 * (g - r * gw);
+    const int nx = min(4, x0 + cols - xg);  // pixels in the group
+    const float* t_row = t_s + r * run;
+    const int2 c0 = col_idx[xg], c3 = col_idx[xg + nx - 1];
+    int lab[4] = {0, 0, 0, 0};
+    if (nx == 4 && c0.x == c3.x && c0.y == c3.y) {  // one pair of taps for all 4
+      float w0[4], w1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 cw = col_w[xg + j];
+        w0[j] = cw.x;
+        w1[j] = cw.y;
+      }
+      pixels_labels<4, kEnt>(t_row + (c0.x - lx0) * C, t_row + (c0.y - lx0) * C, w0, w1, C, lab,
+                             ent);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < nx) {
+          const int2 ci = col_idx[xg + j];
+          const float2 cw = col_w[xg + j];
+          pixels_labels<1, kEnt>(t_row + (ci.x - lx0) * C, t_row + (ci.y - lx0) * C, &cw.x,
+                                 &cw.y, C, &lab[j], ent);
+        }
+    }
+    int* dst = lab_img + (size_t)(y0 + r) * W + xg;
+    if (W % 4 == 0) {  // then x0, cols and xg are multiples of 4 too
+      *reinterpret_cast<int4*>(dst) = make_int4(lab[0], lab[1], lab[2], lab[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < nx) dst[j] = lab[j];
+    }
+  }
+  return ent;
+}
+
 // Kernel B, first pass.  Grid: N * bands * ctiles blocks (ent_tiling); block
 // i takes tile i % (bands * ctiles) of image i / (bands * ctiles), band-major.
-// It stages its rows, then each thread takes groups of 4 consecutive output
-// pixels of a row (a warp 128 pixels: ~17 low-res columns, each a broadcast
-// read from shared memory) and stores their labels as one 16-byte store
-// where W % 4 == 0.  The block's entropy sum, in a fixed order, goes to
-// partial[image, tile].
+// It stages its rows and labels them (label_band); the block's entropy sum,
+// in a fixed order, goes to partial[image, tile].
 template <typename T>
 __global__ void __launch_bounds__(kEntThreads) up_ent_argmax_kernel(
     const T* __restrict__ logits,
@@ -410,45 +406,8 @@ __global__ void __launch_bounds__(kEntThreads) up_ent_argmax_kernel(
                   t_s);
   __syncthreads();
 
-  float ent = 0.f;
-  const int gw = (cols + 3) / 4;  // groups of 4 output columns a row
-  int* lab_img = labels_out + (size_t)n * H * W;
-  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {
-    const int r = g / gw;
-    const int xg = x0 + 4 * (g - r * gw);
-    const int nx = min(4, x0 + cols - xg);  // pixels in the group
-    const float* t_row = t_s + r * run;
-    const int2 c0 = col_idx[xg], c3 = col_idx[xg + nx - 1];
-    int lab[4] = {0, 0, 0, 0};
-    if (nx == 4 && c0.x == c3.x && c0.y == c3.y) {  // one pair of taps for all 4
-      float w0[4], w1[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 cw = col_w[xg + j];
-        w0[j] = cw.x;
-        w1[j] = cw.y;
-      }
-      ent += pixels_entropy_argmax<4>(t_row + (c0.x - lx0) * C, t_row + (c0.y - lx0) * C, w0, w1,
-                                      C, lab);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < nx) {
-          const int2 ci = col_idx[xg + j];
-          const float2 cw = col_w[xg + j];
-          ent += pixels_entropy_argmax<1>(t_row + (ci.x - lx0) * C, t_row + (ci.y - lx0) * C,
-                                          &cw.x, &cw.y, C, &lab[j]);
-        }
-    }
-    int* dst = lab_img + (size_t)(y0 + r) * W + xg;
-    if (W % 4 == 0) {  // then x0, cols and xg are multiples of 4 too
-      *reinterpret_cast<int4*>(dst) = make_int4(lab[0], lab[1], lab[2], lab[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (j < nx) dst[j] = lab[j];
-    }
-  }
+  float ent = label_band<true>(t_s, col_idx, col_w, C, W, y0, x0, rows, cols, lx0, run,
+                               labels_out + (size_t)n * H * W);
   // fixed-order block sum: warp shuffles, then the first warp
   __shared__ float warp_part[kEntThreads / 32];
   ent = warp_sum(ent);
@@ -479,6 +438,31 @@ __global__ void __launch_bounds__(THREADS) ent_finalize_kernel(
     v = warp_sum(v);
     if (threadIdx.x == 0) ent_out[n] = (float)(v * (double)inv_norm);
   }
+}
+
+// Kernel C.  Grid: N * bands * ctiles blocks (ent_tiling), band-major, as
+// B's.  A block stages its rows and labels them (label_band with the argmax
+// pass alone).
+template <typename T>
+__global__ void __launch_bounds__(kEntThreads) up_argmax_map_kernel(
+    const T* __restrict__ logits,
+    const int2* __restrict__ row_idx, const float2* __restrict__ row_w,
+    const int2* __restrict__ col_idx, const float2* __restrict__ col_w,
+    int h, int w, int C, int H, int W, EntTiling tl, int* __restrict__ labels_out) {
+  extern __shared__ __align__(16) float t_s[];  // [rows][run]
+  const int tiles = tl.bands * tl.ctiles;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int band = tile / tl.ctiles;
+  const int y0 = band * tl.th, x0 = (tile - band * tl.ctiles) * tl.tw;
+  const int rows = min(tl.th, H - y0), cols = min(tl.tw, W - x0);
+  const int lx0 = col_idx[x0].x;
+  const int run = (col_idx[x0 + cols - 1].y - lx0 + 1) * C;  // <= span * C
+  logits += (size_t)n * h * w * C;  // this image
+  stage_band_rows(logits, w, C, row_idx + y0, row_w + y0, rows, lx0, run, t_s);
+  __syncthreads();
+  label_band<false>(t_s, col_idx, col_w, C, W, y0, x0, rows, cols, lx0, run,
+                    labels_out + (size_t)n * H * W);
 }
 
 // Kernel A.  Grid: count * bands * ctiles blocks (ent_tiling with the counts'
@@ -565,14 +549,6 @@ __global__ void __launch_bounds__(kEntThreads) up_argmax_conf_kernel(
     if (hist[i]) atomicAdd(&counts[i], hist[i]);
 }
 
-int grid_blocks(int rows, int H, int W, int* blocks_per_img) {
-  const long long bpi = ((long long)H * W + THREADS - 1) / THREADS;
-  const long long total = bpi * rows;
-  if (total <= 0 || total > 0x7fffffffLL) return 0;
-  *blocks_per_img = (int)bpi;
-  return (int)total;
-}
-
 }  // namespace
 
 extern "C" {
@@ -618,29 +594,39 @@ int ee_upsample_argmax_confusion(
 }
 
 // logits (N, h, w, C) f32 or bf16 -> labels_out (N, H, W) int32.  Returns
-// cudaGetLastError().
+// cudaErrorInvalidValue where no tiling fits shared memory
+// (ee_ent_partials_per_image is 0), else cudaGetLastError().
 int ee_upsample_argmax(
     const void* logits, int is_bf16,
     const void* row_idx, const void* row_w, const void* col_idx, const void* col_w,
     int N, int h, int w, int C, int H, int W, void* labels_out, void* stream) {
-  int bpi = 0;
-  const int blocks = grid_blocks(N, H, W, &bpi);
-  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  EntTiling tl;
+  if (N < 1 || h < 1 || !ent_tiling(w, C, H, W, 0, &tl)) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)tl.bands * tl.ctiles;
+  if (tiles * N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)tl.th * tl.span * C * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   if (is_bf16) {
-    up_argmax_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
+    err = cudaFuncSetAttribute(up_argmax_map_kernel<__nv_bfloat16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    up_argmax_map_kernel<__nv_bfloat16><<<(unsigned)(tiles * N), kEntThreads, smem, s>>>(
         (const __nv_bfloat16*)logits, (const int2*)row_idx, (const float2*)row_w,
-        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, bpi, (int*)labels_out);
+        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, tl, (int*)labels_out);
   } else {
-    up_argmax_kernel<float><<<blocks, THREADS, 0, s>>>(
+    err = cudaFuncSetAttribute(up_argmax_map_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    up_argmax_map_kernel<float><<<(unsigned)(tiles * N), kEntThreads, smem, s>>>(
         (const float*)logits, (const int2*)row_idx, (const float2*)row_w,
-        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, bpi, (int*)labels_out);
+        (const int2*)col_idx, (const float2*)col_w, h, w, C, H, W, tl, (int*)labels_out);
   }
   return (int)cudaGetLastError();
 }
 
-// Partials a image of ee_upsample_entropy_argmax (its tiles), 0 if no
-// tiling fits shared memory.
+// Partials a image of ee_upsample_entropy_argmax (its tiles, and C's), 0 if
+// no tiling fits shared memory.
 int ee_ent_partials_per_image(int h, int w, int C, int H, int W) {
   EntTiling t;
   return h >= 1 && ent_tiling(w, C, H, W, 0, &t) ? t.bands * t.ctiles : 0;

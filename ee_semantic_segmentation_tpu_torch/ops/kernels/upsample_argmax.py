@@ -3,8 +3,9 @@
 Port of ``ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py``.  The
 eval paths upsample every exit's low-res logits to input resolution only to
 argmax them (and, for the entropy gate, to take the softmax entropy).  The
-three hand-written CUDA kernels in ``csrc/upsample_heads.cu`` do that per
-output pixel from the 2x2 low-res taps, so the upsampled (N, H, W, C)
+three hand-written CUDA kernels in ``csrc/upsample_heads.cu`` stage each
+band of output rows' row interpolation in shared memory and take each
+output pixel's column step from there, so the upsampled (N, H, W, C)
 float32 tensor never exists:
 
 * ``upsample_argmax_confusion`` -> (3, C) TP/FP/FN of the argmax map
@@ -131,6 +132,17 @@ def _launch_args(logits, H, W):
             ri.data_ptr(), rw.data_ptr(), ci.data_ptr(), cw.data_ptr())
 
 
+def _band_tiles(lib, what: str, h: int, w: int, C: int, H: int, W: int) -> int:
+    """Blocks an image of kernels B's and C's staged walk; raises where not
+    even a band of one output row fits a block's shared memory (above
+    ~9,700 classes)."""
+    tiles = lib.ee_ent_partials_per_image(h, w, C, H, W)
+    if tiles == 0:
+        raise ValueError(f"{what}: a band of ({h}, {w}, {C}) -> ({H}, {W}) does not fit a "
+                         "block's shared memory")
+    return tiles
+
+
 def upsample_argmax_confusion(logits: torch.Tensor, labels: torch.Tensor,
                               count: int, out_hw) -> torch.Tensor:
     """(N, h, w, C) logits + (N, H, W) int32 labels -> (3, C) float32
@@ -173,10 +185,7 @@ def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
         return upsample_entropy_argmax_plain(logits, out_hw)
     N, h, w, C, H, W = _check_logits(logits, out_hw)
     lib = _build.load_library()
-    tiles = lib.ee_ent_partials_per_image(h, w, C, H, W)  # one entropy partial a block
-    if tiles == 0:
-        raise ValueError(f"upsample_entropy_argmax: a band of ({h}, {w}, {C}) -> ({H}, {W}) "
-                         "does not fit a block's shared memory")
+    tiles = _band_tiles(lib, "upsample_entropy_argmax", h, w, C, H, W)  # an entropy partial a block
     labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
     partial = torch.empty((N, tiles), dtype=torch.float32, device=logits.device)
     ent = torch.empty((N,), dtype=torch.float32, device=logits.device)
@@ -194,13 +203,16 @@ def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
 def upsample_argmax(logits: torch.Tensor, out_hw) -> torch.Tensor:
     """(N, h, w, C) logits -> (N, H, W) int32 argmax of the bilinear
     upsample.  Kernel C.  With ``(H, W) == (h, w)`` there is nothing to
-    upsample and the result is the argmax itself, as in the JAX package."""
+    upsample and the result is the argmax itself, as in the JAX package.
+    On the card a ``ValueError`` where no band fits shared memory (above
+    ~9,700 classes)."""
     if tuple(int(d) for d in out_hw) == tuple(logits.shape[1:3]):
         return logits.argmax(dim=-1).int()
     if logits.device.type == "cpu":
         return upsample_argmax_plain(logits, out_hw)
     N, h, w, C, H, W = _check_logits(logits, out_hw)
     lib = _build.load_library()
+    _band_tiles(lib, "upsample_argmax", h, w, C, H, W)
     labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
     if N == 0:
         return labels

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Time source variants of the shipped CUDA kernels (the unsort, kernel
-D's backward call, and kernels E, F, B and A) against them, on one NVIDIA
-GPU.
+D's backward call, and kernels E, F, B, A and C) against them, on one
+NVIDIA GPU.
 
 Run from the root of a checkout:
 
-    python3 kernel_variants.py [--csrc DIR] [--only unsort|hist|lookup|ent|conf]
+    python3 kernel_variants.py [--csrc DIR] [--only unsort|hist|lookup|ent|conf|argmax]
 
 Each variant is ``csrc/<source>`` with a few text substitutions (a
 constant changed, a step taken out), compiled by nvcc into a library of its
@@ -19,18 +19,21 @@ between CUDA events (``chip_smoke.median_ms``) at the flagship's row
 shapes (63 x 2^22 and 1008 x 2^18): E at 1024 bins on the three error laws
 of ``chip_smoke.py`` phase 3c and at 16384 bins (E's bucket ranges) at
 63 x 2^22; F at 1024, 16384 and 65536 bins on both shapes and the three
-laws, beside ``gather``; B and A at the flagship's eval shape (N=16, 64x64
--> 512x512, C=21, float32; A also on a trained model's logits and
-labels), where each variant's agreement with the plain version is printed
-too.  A variant that takes a step out computes a wrong result by design:
-only the shipped kernels' results are checked here (against ``scatter_``,
-the plain histogram, lookup and heads), and ``chip_smoke.py`` checks them
+laws, beside ``gather``; B, A and C at the flagship's eval shape (N=16,
+64x64 -> 512x512, C=21, float32; A and C also on a trained model's logits
+and labels), where each variant's agreement with the plain version is
+printed too.  With ``--csrc``, ``--only argmax`` also holds the earlier
+tree's kernels A and B against the shipped ones: SASS, outputs and time.
+A variant that takes a step out computes a wrong result by design: only
+the shipped kernels' results are checked here (against ``scatter_``, the
+plain histogram, lookup and heads), and ``chip_smoke.py`` checks them
 everywhere else.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import hashlib
 import itertools
@@ -88,6 +91,144 @@ A_MERGED_COUNTS = """    int tp_fp[4] = {-1, -1, -1, -1}, fn[4] = {-1, -1, -1, -
     count_keys(hist, fn);
 """
 
+# kernel C's walk in groups of 8 output columns (lever (a)): at 8x the
+# pixels of [8k + 4, 8k + 12) share their taps, so the groups start 4
+# columns before the tile; the tile's first and last groups have 4 pixels
+C_GROUPS_OF_8 = """// Kernel C's walk in groups of 8 output columns from x0 - 4.
+__device__ __forceinline__ void label_band8(const float* t_s, const int2* col_idx,
+                                            const float2* col_w, int C, int W, int y0, int x0,
+                                            int rows, int cols, int lx0, int run,
+                                            int* lab_img) {
+  const int gw = (cols + 11) / 8;  // groups [x0 - 4 + 8 i, x0 + 4 + 8 i) a row
+  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {
+    const int r = g / gw;
+    const int xs = x0 - 4 + 8 * (g - r * gw);
+    const int lo = max(xs, x0), nx = min(xs + 8, x0 + cols) - lo;
+    const float* t_row = t_s + r * run;
+    const int2 c0 = col_idx[lo], c7 = col_idx[lo + nx - 1];
+    int lab[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (nx == 8 && c0.x == c7.x && c0.y == c7.y) {
+      float w0[8], w1[8], m[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 cw = col_w[lo + j];
+        w0[j] = cw.x;
+        w1[j] = cw.y;
+      }
+      pixels_argmax<8>(t_row + (c0.x - lx0) * C, t_row + (c0.y - lx0) * C, w0, w1, C, m, lab);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < nx) {
+          const int2 ci = col_idx[lo + j];
+          const float2 cw = col_w[lo + j];
+          float m;
+          pixels_argmax<1>(t_row + (ci.x - lx0) * C, t_row + (ci.y - lx0) * C, &cw.x, &cw.y, C,
+                           &m, &lab[j]);
+        }
+    }
+    int* dst = lab_img + (size_t)(y0 + r) * W + lo;
+    if (W % 4 == 0) {  // then lo and nx are multiples of 4
+      *reinterpret_cast<int4*>(dst) = make_int4(lab[0], lab[1], lab[2], lab[3]);
+      if (nx == 8) *reinterpret_cast<int4*>(dst + 4) = make_int4(lab[4], lab[5], lab[6], lab[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < nx) dst[j] = lab[j];
+    }
+  }
+}
+
+"""
+# the same lever in aligned groups of 8 whose two halves share their taps
+# and one low-res column (at 8x [8k, 8k + 4) take (k - 1, k) and [8k + 4,
+# 8k + 8) take (k, k + 1)): 3 shared reads a class for 8 pixels, and 64
+# groups a row, 256 a block of 4 rows: one group a thread
+C_GROUPS_OF_8_3COL = """// 8 pixels whose halves share their taps: a, b for the first 4, b, c for the
+// last 4 (pixels_argmax's arithmetic).
+__device__ __forceinline__ void pixels_argmax_3col(const float* a, const float* b, const float* c,
+                                                   const float* wc0, const float* wc1, int C,
+                                                   int* best) {
+  float m[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    m[p] = p < 4 ? wc0[p] * a[0] + wc1[p] * b[0] : wc0[p] * b[0] + wc1[p] * c[0];
+    best[p] = 0;
+  }
+  for (int k = 1; k < C; ++k) {
+    const float x = a[k], y = b[k], z = c[k];
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const float v = p < 4 ? wc0[p] * x + wc1[p] * y : wc0[p] * y + wc1[p] * z;
+      if (v > m[p]) {
+        m[p] = v;
+        best[p] = k;
+      }
+    }
+  }
+}
+
+// Kernel C's walk in aligned groups of 8 output columns; a group whose
+// halves do not chain walks as two groups of 4, as label_band does.
+__device__ __forceinline__ void label_band8c(const float* t_s, const int2* col_idx,
+                                             const float2* col_w, int C, int W, int y0, int x0,
+                                             int rows, int cols, int lx0, int run,
+                                             int* lab_img) {
+  const int gw = (cols + 7) / 8;  // groups of 8 output columns a row
+  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {
+    const int r = g / gw;
+    const int xg = x0 + 8 * (g - r * gw);
+    const int nx = min(8, x0 + cols - xg);  // pixels in the group
+    const float* t_row = t_s + r * run;
+    int lab[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    float w0[8], w1[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 cw = col_w[xg + min(j, nx - 1)];
+      w0[j] = cw.x;
+      w1[j] = cw.y;
+    }
+    const int2 c0 = col_idx[xg], c3 = col_idx[xg + min(3, nx - 1)];
+    const int2 c4 = col_idx[xg + min(4, nx - 1)], c7 = col_idx[xg + nx - 1];
+    if (nx == 8 && c0.x == c3.x && c0.y == c3.y && c4.x == c7.x && c4.y == c7.y &&
+        c0.y == c4.x) {
+      pixels_argmax_3col(t_row + (c0.x - lx0) * C, t_row + (c0.y - lx0) * C,
+                         t_row + (c4.y - lx0) * C, w0, w1, C, lab);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 8; h += 4) {
+        const int n4 = min(4, nx - h);
+        const int2 d0 = col_idx[xg + min(h, nx - 1)], d3 = col_idx[xg + max(0, min(h + n4, nx) - 1)];
+        if (n4 == 4 && d0.x == d3.x && d0.y == d3.y) {
+          float m[4];
+          pixels_argmax<4>(t_row + (d0.x - lx0) * C, t_row + (d0.y - lx0) * C, w0 + h, w1 + h, C,
+                           m, lab + h);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < n4) {
+              const int2 ci = col_idx[xg + h + j];
+              float m;
+              pixels_argmax<1>(t_row + (ci.x - lx0) * C, t_row + (ci.y - lx0) * C, &w0[h + j],
+                               &w1[h + j], C, &m, &lab[h + j]);
+            }
+        }
+      }
+    }
+    int* dst = lab_img + (size_t)(y0 + r) * W + xg;
+    if (W % 4 == 0) {  // then xg and nx are multiples of 4
+      *reinterpret_cast<int4*>(dst) = make_int4(lab[0], lab[1], lab[2], lab[3]);
+      if (nx == 8) *reinterpret_cast<int4*>(dst + 4) = make_int4(lab[4], lab[5], lab[6], lab[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (j < nx) dst[j] = lab[j];
+    }
+  }
+}
+
+"""
+
 # the C entries of an earlier tree whose signature has changed since:
 # kernel F's per-chunk design took a chunk (pixels a block) after bins
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -109,11 +250,12 @@ class Variant(NamedTuple):
 
 
 # the lines that name an earlier tree's design: E's float sums in shared
-# memory, F's block a chunk of a row, A's and B's thread an output pixel
+# memory, F's block a chunk of a row, A's, B's and C's thread an output pixel
 E_FLOAT_SUM = "    atomicAdd(&s_n[b], 1);"
 F_PER_CHUNK = "      o_row[p] = __ldg(&t_row[f_row[p] ? b : bins + b]) * valid;"
 A_PER_PIXEL = "    const int lab = labels[(size_t)n * HW + p];"
 B_PER_PIXEL = "        if (k < C) v[k] = taps.value(k);"
+C_PER_PIXEL = "  labels_out[(size_t)n * HW + p] = taps_argmax(taps, C);"
 
 VARIANTS = {
     "unsort one-pass scatter": Variant("sort_rows.cu", [
@@ -213,6 +355,32 @@ VARIANTS = {
     "B staging only (no pixels)": Variant("upsample_heads.cu", [
         ("  for (int g = threadIdx.x; g < rows * gw; g += kEntThreads) {",
          "  for (int g = threadIdx.x; g < 0; g += kEntThreads) {")]),
+    # kernel C as shipped, with one step taken out or swapped.  B and C share
+    # their group walk (label_band): where a variant changes it, B's variant
+    # of the same name changes it too, and each is timed under its kernel
+    "C staging only (no pixels)": Variant("upsample_heads.cu", [
+        ("  label_band<false>(t_s,", "  if (n < 0) label_band<false>(t_s,")]),
+    "C pixels only (no staging)": Variant("upsample_heads.cu", [
+        ("  stage_band_rows(logits, w, C,", "  if (n < 0) stage_band_rows(logits, w, C,")]),
+    "C pixel by pixel (no shared-tap groups)": Variant("upsample_heads.cu", [
+        ("    if (nx == 4 && c0.x == c3.x && c0.y == c3.y) {", "    if (false) {")]),
+    "C without the label store": Variant("upsample_heads.cu", [
+        ("      *reinterpret_cast<int4*>(dst) = make_int4(",
+         "      if (lab[0] == -7) *reinterpret_cast<int4*>(dst) = make_int4(")]),
+    "C with 4-byte label stores": Variant("upsample_heads.cu", [
+        ("    if (W % 4 == 0) {  // then x0, cols and xg are multiples of 4 too",
+         "    if (false) {  // then x0, cols and xg are multiples of 4 too")]),
+    # the two levers: (a) groups of 8 pixels that share their taps, half the
+    # shared reads a pixel; (b) more work a block, a band of 8 rows
+    "C groups of 8 pixels": Variant("upsample_heads.cu", [
+        ("// Kernel C.  Grid: N * bands * ctiles blocks", C_GROUPS_OF_8 + "// Kernel C.  Grid: N * bands * ctiles blocks"),
+        ("  label_band<false>(t_s,", "  label_band8(t_s,")]),
+    "C groups of 8 pixels over 3 low-res columns": Variant("upsample_heads.cu", [
+        ("// Kernel C.  Grid: N * bands * ctiles blocks",
+         C_GROUPS_OF_8_3COL + "// Kernel C.  Grid: N * bands * ctiles blocks"),
+        ("  label_band<false>(t_s,", "  label_band8c(t_s,")]),
+    "C band of 8 rows": Variant("upsample_heads.cu", [
+        ("constexpr int kBandRows = 4;", "constexpr int kBandRows = 8;")]),
     # kernel F as shipped, with one constant changed or one step taken out
     "F on 256 threads, tiles of 2048": Variant("hist_lovasz.cu", [
         ("constexpr int kWideThreads = 1024;", "constexpr int kWideThreads = 256;"),
@@ -271,6 +439,10 @@ VARIANTS = {
     # by --csrc), as it was: timed in turns with the shipped kernel; kernel B
     # of that tree too
     "A, per-pixel design, as it was": Variant("upsample_heads.cu", earlier=A_PER_PIXEL),
+    # kernel C with one thread an output pixel (an earlier tree's csrc, given
+    # by --csrc), as it was: timed in turns with the shipped kernel; that
+    # tree's kernels A and B are held against the shipped ones too
+    "C, per-pixel design, as it was": Variant("upsample_heads.cu", earlier=C_PER_PIXEL),
     # kernel B with one thread an output pixel reading its 2x2 taps of every
     # class from device memory (an earlier tree's csrc, given by --csrc),
     # as it was and with one step taken out or swapped: its split
@@ -365,10 +537,26 @@ def sass_of(so, _build, name):
                         line.split("Function :")[1].strip())
             fns[fn] = []
         elif fn is not None and "/*" in line:
-            ins = re.sub(r"/\*[0-9a-f]{4}\*/", "", line).split(";")[0].strip()
+            ins = re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split(";")[0].strip()
             if ins:
                 fns[fn].append(ins)
     return {k: v for k, v in fns.items() if name in k}
+
+
+def sass_moved(new, old):
+    """What two SASS listings of one kernel (``sass_of``) differ in beyond
+    register numbers: the instructions (the encoding words left out) with
+    every register and predicate name made R or P, compared in order, and
+    the opcodes that one holds more often than the other."""
+    def norm(ins):
+        return [re.sub(r"\bU?P[0-7T]\b", "P", re.sub(r"\bU?R(\d+|Z)\b", "R", i))
+                for i in ins if not i.startswith("/*")]
+    a, b = norm(new), norm(old)
+    ops = lambda x: collections.Counter(next(t for t in i.split() if not t.startswith("@"))
+                                        for i in x)
+    more, fewer = ops(a) - ops(b), ops(b) - ops(a)
+    return (f"{len(a)} instructions ({len(b)} in the earlier tree's), equal with registers "
+            f"renamed {a == b}; opcodes more {dict(more)}, fewer {dict(fewer)}")
 
 
 def lookup_with(lib, errors, fg, emax, inv_w, tables, bins, torch, earlier=False):
@@ -396,12 +584,25 @@ def conf_with(lib, U, logits, labels, count, H, W, torch):
     return counts
 
 
+def argmax_with(lib, U, logits, H, W, torch):
+    """Kernel C through a variant's library (or an earlier tree's: the
+    entry point's signature is unchanged): (N, H, W) int32 maps."""
+    N, h, w, C = logits.shape
+    labels = torch.empty((N, H, W), dtype=torch.int32, device="cuda")
+    err = lib.ee_upsample_argmax(*U._launch_args(logits, H, W), N, h, w, C, H, W,
+                                 labels.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"argmax head variant: CUDA error {err}")
+    return labels
+
+
 def in_turns(ms, name, variant, shipped, median_ms):
-    """A variant of an earlier design timed in turns with the shipped kernel
-    (variant, shipped, shipped, variant) under ``name`` and ``name, again``."""
+    """A variant timed in turns with the shipped kernel (variant, shipped,
+    shipped, variant) under ``name`` and ``name, again``, the shipped
+    kernel under ``shipped (in turns with <name>)``."""
     ms[name] = median_ms(variant)
-    ms["shipped (in turns with it)"] = median_ms(shipped)
-    ms["shipped (in turns with it), again"] = median_ms(shipped)
+    ms[f"shipped (in turns with {name})"] = median_ms(shipped)
+    ms[f"shipped (in turns with {name}), again"] = median_ms(shipped)
     ms[f"{name}, again"] = median_ms(variant)
 
 
@@ -453,11 +654,51 @@ def ent_with(lib, U, logits, H, W, torch):
     return labels, ent
 
 
+def heads_vs_earlier(lib, so, kernels, U, CS, logits, labels, _build, torch):
+    """An earlier tree's eval heads (``so``, loaded as ``lib``) against the
+    shipped ones, for each kernel name in ``kernels`` (B's
+    ``up_ent_argmax_kernel``, A's ``up_argmax_conf_kernel``): SASS
+    instruction for instruction, outputs, and time in turns, at
+    ``logits`` and ``labels``."""
+    N, _, _, C = logits.shape
+    H, W = labels.shape[1:]
+    for name in kernels:
+        old, new = (sass_of(f, _build, name) for f in (so, _build.build()))
+        for k in new:
+            o = old.get(k, [])
+            diff = [(i, a, b) for i, (a, b) in enumerate(zip(new[k], o)) if a != b]
+            print(f"[variants] {name}'s SASS ({k[:60]}...): {len(new[k])} lines "
+                  f"({len(o)} in the earlier tree's), equal {new[k] == o}; "
+                  f"{len(diff)} differ, the first: {diff[:3]}; {sass_moved(new[k], o)}")
+    # both trees through the same helpers: the same allocations around each
+    shipped = _build.load_library()
+    shape = f"N={N} {logits.shape[1]}x{logits.shape[2]}->{H}x{W} C={C} f32"
+    if "up_ent_argmax_kernel" in kernels:
+        maps_o, ent_o = ent_with(lib, U, logits, H, W, torch)
+        maps_n, ent_n = ent_with(shipped, U, logits, H, W, torch)
+        print(f"[variants] B outputs equal the earlier tree's: maps "
+              f"{bool(torch.equal(maps_o, maps_n))}, entropies {bool(torch.equal(ent_o, ent_n))}")
+        ms = {}
+        in_turns(ms, "B of the earlier tree", lambda: ent_with(lib, U, logits, H, W, torch),
+                 lambda: ent_with(shipped, U, logits, H, W, torch), CS.median_ms)
+        print(f"[variants] B {shape} ms: {json.dumps(ms)}")
+    if "up_argmax_conf_kernel" in kernels:
+        conf_o = conf_with(lib, U, logits, labels, N, H, W, torch)
+        conf_n = conf_with(shipped, U, logits, labels, N, H, W, torch)
+        print(f"[variants] A's counts equal the earlier tree's: {bool(torch.equal(conf_o, conf_n))}")
+        ms = {}
+        in_turns(ms, "A of the earlier tree",
+                 lambda: conf_with(lib, U, logits, labels, N, H, W, torch),
+                 lambda: conf_with(shipped, U, logits, labels, N, H, W, torch), CS.median_ms)
+        print(f"[variants] A {shape} ms: {json.dumps(ms)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--csrc", type=pathlib.Path, default=None,
                     help="take the variants' sources from this csrc/ directory")
-    ap.add_argument("--only", choices=("unsort", "hist", "ent", "lookup", "conf"), default=None)
+    ap.add_argument("--only", choices=("unsort", "hist", "ent", "lookup", "conf", "argmax"),
+                    default=None)
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -477,7 +718,8 @@ def main(argv=None) -> int:
     print(card.splitlines()[0])
     csrc = args.csrc or _build.CSRC
     _build.load_library()
-    prefix = {"unsort": "unsort", "hist": "E", "ent": "B", "lookup": "F", "conf": "A"}
+    prefix = {"unsort": "unsort", "hist": "E", "ent": "B", "lookup": "F", "conf": "A",
+              "argmax": "C"}
     # the shipped sources' variants, or with --csrc the earlier designs'
     names = [n for n, v in VARIANTS.items()
              if (args.only is None or n.startswith(prefix[args.only]))
@@ -602,23 +844,48 @@ def main(argv=None) -> int:
         # shipped one: its SASS, its outputs and its time in turns
         for name, lib in libs.items():
             if name.startswith("A") and name in as_it_was:
-                old, new = (sass_of(so, _build, "up_ent_argmax_kernel")
-                            for so in (variant_so(name, _build), _build.build()))
-                for k in new:
-                    o = old.get(k, [])
-                    diff = [(i, a, b) for i, (a, b) in enumerate(zip(new[k], o)) if a != b]
-                    print(f"[variants] B's SASS ({k[:60]}...): {len(new[k])} instructions "
-                          f"({len(o)} in the earlier tree's), equal {new[k] == o}; "
-                          f"{len(diff)} differ, the first: {diff[:3]}")
-                maps_o, ent_o = ent_with(lib, U, logits, H, W, torch)
-                maps_n, ent_n = U.upsample_entropy_argmax(logits, (H, W))
-                print(f"[variants] B outputs equal the earlier tree's: maps "
-                      f"{bool(torch.equal(maps_o, maps_n))}, entropies "
-                      f"{bool(torch.equal(ent_o, ent_n))}")
-                ms = {}
-                in_turns(ms, "B of the earlier tree", lambda: ent_with(lib, U, logits, H, W, torch),
-                         lambda: U.upsample_entropy_argmax(logits, (H, W)), CS.median_ms)
-                print(f"[variants] B N={N} {h}x{w}->{H}x{W} C={CS.C} f32 ms: {json.dumps(ms)}")
+                heads_vs_earlier(lib, variant_so(name, _build), ("up_ent_argmax_kernel",), U, CS,
+                                 logits, labels, _build, torch)
+
+    if args.only in (None, "argmax"):
+        N, h, w, H, W = 16, 64, 64, 512, 512
+        rng = np.random.RandomState(0)  # chip_smoke.py phase 3's flagship logits and labels
+        logits = torch.from_numpy((2 * rng.randn(N, h, w, CS.C)).astype(np.float32)).cuda()
+        labels = torch.from_numpy(rng.randint(0, CS.C + 1, (N, H, W)).astype(np.int32)).cuda()
+        lt = torch.from_numpy(CS.trained_conf_law(N, h, w, H, W, CS.C, seed=5)[0]).cuda()
+        for law, x in (("uniform", logits), ("trained", lt)):
+            maps_p = U.upsample_argmax_plain(x, (H, W))
+            shipped = lambda: U.upsample_argmax(x, (H, W))
+            got = shipped()
+            agree = 1.0 - (got != maps_p).float().mean().item()
+            same_b = bool(torch.equal(got, U.upsample_entropy_argmax(x, (H, W))[0]))
+            CS.check(agree >= CS.TOL_MAP_AGREE and same_b,
+                     f"kernel C on the {law} law: maps agree {agree}, equal B's {same_b}")
+            ms = {"shipped": CS.median_ms(shipped)}
+            for name, lib in libs.items():
+                if not name.startswith("C"):
+                    continue
+                fn = lambda: argmax_with(lib, U, x, H, W, torch)
+                a = 1.0 - (fn() != maps_p).float().mean().item()
+                print(f"[variants] C {name} on the {law} law: maps agree {a:.7f} (a variant that "
+                      "takes a step out is wrong by design)")
+                in_turns(ms, name, fn, shipped, CS.median_ms)
+            ms["shipped, again"] = CS.median_ms(shipped)
+            print(f"[variants] C N={N} {h}x{w}->{H}x{W} C={CS.C} f32, {law} law ms: "
+                  f"{json.dumps(ms)}")
+            for name, lib in (("shipped", None), *libs.items()):
+                if name == "shipped" or name.startswith("C"):
+                    fn = (shipped if lib is None else
+                          (lambda: argmax_with(lib, U, x, H, W, torch)))
+                    print(f"[variants] C {name}, {law} law, per CUDA kernel [launches, ms]: "
+                          f"{CS.per_kernel_ms(fn, torch)}")
+        # kernels B and A of the earlier tree (C's "as it was" library)
+        # against the shipped ones: SASS, outputs and time in turns
+        for name, lib in libs.items():
+            if name.startswith("C") and name in as_it_was:
+                heads_vs_earlier(lib, variant_so(name, _build),
+                                 ("up_ent_argmax_kernel", "up_argmax_conf_kernel"), U, CS,
+                                 logits, labels, _build, torch)
 
     if args.only in (None, "ent"):
         N, h, w, H, W = 16, 64, 64, 512, 512

@@ -135,6 +135,19 @@ def test_wrappers_reject_other_devices_and_one_class():
         TU.upsample_entropy_argmax(torch.zeros((1, 4, 4, 1)), (8, 8))
 
 
+
+def test_band_walk_wrappers_raise_where_no_band_fits():
+    """Kernels B and C stage a band of output rows in shared memory; where
+    the library finds no tiling (0 tiles an image: above ~9,700 classes)
+    the wrappers raise a ValueError before they allocate or launch.  The
+    CUDA build needs nvcc, so a stand-in library answers here."""
+    class Lib:
+        ee_ent_partials_per_image = staticmethod(lambda h, w, C, H, W: 0 if C > 9000 else 128)
+
+    assert TU._band_tiles(Lib, "upsample_argmax", 64, 64, 21, 512, 512) == 128
+    with pytest.raises(ValueError, match="upsample_argmax: a band of .* does not fit"):
+        TU._band_tiles(Lib, "upsample_argmax", 8, 8, 20000, 64, 64)
+
 def test_build_raises_naming_the_command_without_nvcc(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found") as err:

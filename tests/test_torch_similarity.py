@@ -45,11 +45,16 @@ def _few_torch_threads():
 
 # ---------------------------------------------------------------- kernel C
 @pytest.mark.parametrize("shape,out_hw", [((2, 8, 12, 5), (32, 48)), ((3, 4, 4, 21), (32, 32)),
-                                          ((2, 5, 7, 3), (17, 13)), ((2, 8, 8, 4), (8, 8))])
+                                          ((2, 5, 7, 3), (17, 13)), ((2, 8, 8, 4), (8, 8)),
+                                          ((2, 4, 4, 40), (16, 16)), ((2, 8, 8, 21), (70, 66)),
+                                          ((2, 8, 8, 5), (32, 8)), ((2, 8, 8, 5), (8, 32))])
 def test_upsample_argmax_plain_matches_jax_kernel_and_reference(shape, out_hw):
     """Equal label maps: the JAX Pallas kernel (interpret mode) and its
     jax.image.resize reference; tie-free continuous logits.  (8, 8) -> (8,
-    8) is the no-resize contract: the argmax itself."""
+    8) is the no-resize contract: the argmax itself.  The shapes of kernel
+    C's edges on the card: 40 classes (above 32), H not a multiple of the
+    4-row band with W not a multiple of 4 (scalar label stores), and a
+    resize in one axis only."""
     x = (2 * np.random.RandomState(sum(shape)).randn(*shape)).astype(np.float32)
     got = TU.upsample_argmax(torch.from_numpy(x), out_hw)
     assert got.dtype == torch.int32 and tuple(got.shape) == (shape[0], *out_hw)
@@ -59,6 +64,16 @@ def test_upsample_argmax_plain_matches_jax_kernel_and_reference(shape, out_hw):
     np.testing.assert_array_equal(TU.upsample_argmax_plain(torch.from_numpy(x), out_hw).numpy(),
                                   got.numpy())
 
+
+
+def test_upsample_argmax_of_no_images_is_an_empty_map():
+    """N = 0: an empty (0, H, W) int32 map, as the JAX package's
+    jax.image.resize reference gives (its Pallas kernel rejects N = 0)."""
+    x = np.zeros((0, 8, 8, 5), np.float32)
+    got = TU.upsample_argmax(torch.from_numpy(x), (32, 32))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (0, 32, 32)
+    want = np.asarray(JU.upsample_argmax_reference(jnp.asarray(x), (32, 32)))
+    assert want.dtype == np.int32 and want.shape == tuple(got.shape)
 
 # ---------------------------------------------------------------- metrics
 def _maps(seed=0, E=3, N=2, H=20, W=23, C=6):
