@@ -64,6 +64,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
    eval throughput of the evaluators over the same pre-loaded batches,
    and one batch of each kernel head under ``torch.profiler``: the device
    time of kernels A, B and C inside the batch and their share of it;
+4c. early-exit engines on the same checkpoint (16 synthetic images at 512²,
+   micro-batches of 12, the last with count 4): ``ee_dnn_op_ne`` (ent) with
+   the sequential engine, the masked engine's plain head and its kernel
+   head (``--pallas_head``: kernel B at each gated branch, C at the final
+   classifier) at a tau in the widest gap of the first exit's entropies,
+   also at taus above and below every entropy, and ``-m max -p 2
+   --pallas_head`` (the plain head); ``ee_dnn_op -i`` with ssim and nmi
+   (sequential) and nmi (masked): the JAX CLIs' CSV columns, exits summing
+   to 16, equal exits and FLOPs across engines and heads (mIoU within
+   TOL_MIOU_ABS), B's and C's launches exactly what each micro-batch's
+   exits imply and none by a plain head; ``eval_flops -s 512`` against
+   ``flops_table(512)``; ``eval_image`` on a 512x384 PNG (one palette PNG an
+   exit, its indices the exit's argmax); then images/s of both engines over
+   pre-loaded batches, and one masked micro-batch at the split tau and at a
+   tau above every entropy under ``torch.profiler``: B's and C's device
+   time, their share of the batch, and the device's idle time;
 4b. training main path: the flagship trained through the CLIs
    ``main_bradeepv3`` (per-batch and per-image ``-P`` Lovász, and the
    histogram Lovász ``-G 1024``) and ``main_bradeepv3_ce`` for one epoch of
@@ -1009,9 +1025,22 @@ def check_same_row(what, a_row, b_row):
                   f"{what} {col}: {a} vs {b}")
 
 
-def main_path(U, torch):
-    """Phase 4.  Returns each kernel's launches on its main-path run and the
-    evaluators' images/s."""
+def flagship_checkpoint(tmp, torch):
+    """The flagship with seeded random weights, saved in ``tmp`` as the
+    checkpoint that phases 4 and 4c evaluate; returns its path."""
+    from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
+    from ee_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
+
+    torch.manual_seed(0)
+    model = build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
+    cfg = model.config
+    check(cfg.segment_ends == (12, 15), f"flagship segment_ends {cfg.segment_ends} != (12, 15)")
+    return save_checkpoint(tmp, "flagship", model, cfg)
+
+
+def main_path(U, torch, tmp, ckpt):
+    """Phase 4, in ``tmp`` on the flagship checkpoint ``ckpt``.  Returns each
+    kernel's launches on its main-path run and the evaluators' images/s."""
     from ee_semantic_segmentation_tpu_torch.cli import (
         eval_br_ent,
         eval_br_images,
@@ -1026,151 +1055,142 @@ def main_path(U, torch):
         make_kernel_miou_step_fn,
         mIoU_evaluator_fused,
     )
-    from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
     from ee_semantic_segmentation_tpu_torch.ops.gating import batched_similarity
-    from ee_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
-    torch.manual_seed(0)
-    model = build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
-    cfg = model.config
-    check(cfg.segment_ends == (12, 15), f"flagship segment_ends {cfg.segment_ends} != (12, 15)")
     n_img, bs, tau = 16, 12, 0.5  # synthetic test split: 16 images, 2nd batch count=4
     launches, rows, ips, in_step = {}, {}, {}, {}
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = save_checkpoint(tmp, "flagship", model, cfg)
-        del model
-        args = ["-M", ckpt, "-c", str(C), "-D", "512", "512", "-d", "synthetic", "-b", str(bs)]
-        os.chdir(tmp)
-        try:
-            for key, kernel, cli, extra in (
-                ("miou", U.upsample_argmax_confusion, eval_miou, []),
-                ("ent", U.upsample_entropy_argmax, eval_br_ent, ["-t", str(tau)]),
-                ("sim_ssim", U.upsample_argmax, eval_br_sim, ["-m", "ssim", "-t", str(tau)]),
-                ("sim_nmi", U.upsample_argmax, eval_br_sim, ["-m", "nmi", "-t", str(tau)]),
-                ("images_nmi", None, eval_br_images, ["-m", "nmi", "-t", str(tau)]),
-            ):
-                for head in ("kernel", "plain") if kernel else ("plain",):
-                    for k in U.KERNELS:
-                        k.launches = 0
-                    t0 = time.perf_counter()
-                    cli.main(args + extra + ["-s", f"{key}_{head}"]
-                             + (["--pallas_head"] if head == "kernel" else []))
-                    torch.cuda.synchronize()
-                    counts = {k.__name__: k.launches for k in U.KERNELS}
-                    print(f"[main-path] {cli.__name__.rsplit('.', 1)[1]} {head} head: "
-                          f"{time.perf_counter() - t0:.2f} s wall (load + data + eval), "
-                          f"launches {counts}")
-                    if head == "kernel":
-                        launches[kernel.__name__] = kernel.launches
-                        check(kernel.launches == 3 * 2,
-                              f"{kernel.__name__} launched {kernel.launches} times, "
-                              "want 3 exits x 2 batches")
-                    else:
-                        check(not any(counts.values()), "the plain head launched a kernel")
-                    rows[key, head] = read_csv(f"{key}_{head}.csv")
-                    check(len(rows[key, head]) == 1, f"{key}_{head}.csv: want one row")
-
-            # eval throughput over the same batches, loaded once up front
-            model = load_model(ckpt, torch.device("cuda"))
-            batches = list(DataLoader(resolve_test_set("synthetic", 512), bs))
-            runs = {
-                "eval_miou kernel head": lambda: mIoU_evaluator_fused(
-                    model, 3, C, batches, step=make_kernel_miou_step_fn(model, C)),
-                "eval_miou plain head": lambda: mIoU_evaluator_fused(model, 3, C, batches),
-                "eval_br_ent kernel head": lambda: br_evaluator_entropy_fused(
-                    model, 3, C, batches, tau, pallas_head=True),
-                "eval_br_ent plain head": lambda: br_evaluator_entropy_fused(
-                    model, 3, C, batches, tau),
-                "eval_br_sim kernel head": lambda: br_evaluator_similarity_fused(
-                    model, 3, C, batches, "ssim", tau, ignore=(C - 1,), pallas_head=True),
-                "eval_br_sim plain head": lambda: br_evaluator_similarity_fused(
-                    model, 3, C, batches, "ssim", tau, ignore=(C - 1,)),
-            }
-            for name, fn in runs.items():
-                fn()  # warm-up (cuDNN algorithm choice, allocator)
-                torch.cuda.synchronize()
+    args = ["-M", ckpt, "-c", str(C), "-D", "512", "512", "-d", "synthetic", "-b", str(bs)]
+    os.chdir(tmp)
+    try:
+        for key, kernel, cli, extra in (
+            ("miou", U.upsample_argmax_confusion, eval_miou, []),
+            ("ent", U.upsample_entropy_argmax, eval_br_ent, ["-t", str(tau)]),
+            ("sim_ssim", U.upsample_argmax, eval_br_sim, ["-m", "ssim", "-t", str(tau)]),
+            ("sim_nmi", U.upsample_argmax, eval_br_sim, ["-m", "nmi", "-t", str(tau)]),
+            ("images_nmi", None, eval_br_images, ["-m", "nmi", "-t", str(tau)]),
+        ):
+            for head in ("kernel", "plain") if kernel else ("plain",):
+                for k in U.KERNELS:
+                    k.launches = 0
                 t0 = time.perf_counter()
-                fn()
+                cli.main(args + extra + ["-s", f"{key}_{head}"]
+                         + (["--pallas_head"] if head == "kernel" else []))
                 torch.cuda.synchronize()
-                ips[name] = n_img / (time.perf_counter() - t0)
-                print(f"[main-path] {name}: {ips[name]:.2f} images/s "
-                      f"({n_img} images at 512x512, batch {bs}, evaluator over pre-loaded batches)")
+                counts = {k.__name__: k.launches for k in U.KERNELS}
+                print(f"[main-path] {cli.__name__.rsplit('.', 1)[1]} {head} head: "
+                      f"{time.perf_counter() - t0:.2f} s wall (load + data + eval), "
+                      f"launches {counts}")
+                if head == "kernel":
+                    launches[kernel.__name__] = kernel.launches
+                    check(kernel.launches == 3 * 2,
+                          f"{kernel.__name__} launched {kernel.launches} times, "
+                          "want 3 exits x 2 batches")
+                else:
+                    check(not any(counts.values()), "the plain head launched a kernel")
+                rows[key, head] = read_csv(f"{key}_{head}.csv")
+                check(len(rows[key, head]) == 1, f"{key}_{head}.csv: want one row")
 
-            # each head kernel inside one batch of its evaluator (torch.profiler;
-            # 3 exits, so 3 launches), beside the batch's time (CUDA events)
-            one = batches[:1]
-            for key, name, fn, starts in (
-                ("A", "eval_miou", lambda: mIoU_evaluator_fused(
-                    model, 3, C, one, step=make_kernel_miou_step_fn(model, C)),
-                 ("up_argmax_conf_kernel",)),
-                ("B", "eval_br_ent", lambda: br_evaluator_entropy_fused(
-                    model, 3, C, one, tau, pallas_head=True),
-                 ("up_ent_argmax_kernel", "ent_finalize_kernel")),
-                ("C", "eval_br_sim", lambda: br_evaluator_similarity_fused(
-                    model, 3, C, one, "ssim", tau, ignore=(C - 1,), pallas_head=True),
-                 ("up_argmax_map_kernel",)),
-            ):
-                batch_ms = median_ms(fn, 5, 1)
-                trace = per_kernel_ms(fn, torch, {starts[0]: 3})
-                if trace is None:  # no reading: null in the kernels line
-                    in_step[key] = None
-                    print(f"[eval-profile] {name} kernel head: kernel {key}'s device ms not "
-                          "measured")
-                    continue
-                n, ms = kernels_of(trace, starts)
-                in_step[key] = ms
-                print(f"[eval-profile] {name} kernel head, one batch of {bs} at 512x512: kernel "
-                      f"{key} ({', '.join(starts)}: {n} CUDA launches) {ms:.4f} ms of device time "
-                      f"= {100 * ms / batch_ms:.3f} % of the {batch_ms:.2f} ms batch")
+        # eval throughput over the same batches, loaded once up front
+        model = load_model(ckpt, torch.device("cuda"))
+        batches = list(DataLoader(resolve_test_set("synthetic", 512), bs))
+        runs = {
+            "eval_miou kernel head": lambda: mIoU_evaluator_fused(
+                model, 3, C, batches, step=make_kernel_miou_step_fn(model, C)),
+            "eval_miou plain head": lambda: mIoU_evaluator_fused(model, 3, C, batches),
+            "eval_br_ent kernel head": lambda: br_evaluator_entropy_fused(
+                model, 3, C, batches, tau, pallas_head=True),
+            "eval_br_ent plain head": lambda: br_evaluator_entropy_fused(
+                model, 3, C, batches, tau),
+            "eval_br_sim kernel head": lambda: br_evaluator_similarity_fused(
+                model, 3, C, batches, "ssim", tau, ignore=(C - 1,), pallas_head=True),
+            "eval_br_sim plain head": lambda: br_evaluator_similarity_fused(
+                model, 3, C, batches, "ssim", tau, ignore=(C - 1,)),
+        }
+        for name, fn in runs.items():
+            fn()  # warm-up (cuDNN algorithm choice, allocator)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ips[name] = n_img / (time.perf_counter() - t0)
+            print(f"[main-path] {name}: {ips[name]:.2f} images/s "
+                  f"({n_img} images at 512x512, batch {bs}, evaluator over pre-loaded batches)")
 
-            # tau 0.5 sends every image of the random model to the final
-            # head; a tau in the widest gap between two first-exit entropies
-            # splits the images, so the gated buckets get checked too
+        # each head kernel inside one batch of its evaluator (torch.profiler;
+        # 3 exits, so 3 launches), beside the batch's time (CUDA events)
+        one = batches[:1]
+        for key, name, fn, starts in (
+            ("A", "eval_miou", lambda: mIoU_evaluator_fused(
+                model, 3, C, one, step=make_kernel_miou_step_fn(model, C)),
+             ("up_argmax_conf_kernel",)),
+            ("B", "eval_br_ent", lambda: br_evaluator_entropy_fused(
+                model, 3, C, one, tau, pallas_head=True),
+             ("up_ent_argmax_kernel", "ent_finalize_kernel")),
+            ("C", "eval_br_sim", lambda: br_evaluator_similarity_fused(
+                model, 3, C, one, "ssim", tau, ignore=(C - 1,), pallas_head=True),
+             ("up_argmax_map_kernel",)),
+        ):
+            batch_ms = median_ms(fn, 5, 1)
+            trace = per_kernel_ms(fn, torch, {starts[0]: 3})
+            if trace is None:  # no reading: null in the kernels line
+                in_step[key] = None
+                print(f"[eval-profile] {name} kernel head: kernel {key}'s device ms not "
+                      "measured")
+                continue
+            n, ms = kernels_of(trace, starts)
+            in_step[key] = ms
+            print(f"[eval-profile] {name} kernel head, one batch of {bs} at 512x512: kernel "
+                  f"{key} ({', '.join(starts)}: {n} CUDA launches) {ms:.4f} ms of device time "
+                  f"= {100 * ms / batch_ms:.3f} % of the {batch_ms:.2f} ms batch")
+
+        # tau 0.5 sends every image of the random model to the final
+        # head; a tau in the widest gap between two first-exit entropies
+        # splits the images, so the gated buckets get checked too
+        with torch.inference_mode():
+            ent1 = torch.cat([
+                U.upsample_entropy_argmax(
+                    model.lowres_logits(torch.from_numpy(b["image"]).cuda())[0],
+                    (512, 512))[1][:b["count"]]
+                for b in batches]).sort().values.tolist()
+        gap, i = max((ent1[j + 1] - ent1[j], j) for j in range(len(ent1) - 1))
+        check(gap > 1e-5, f"first-exit entropies too close to split: {ent1}")
+        tau_split = (ent1[i] + ent1[i + 1]) / 2
+        split_k = br_evaluator_entropy_fused(model, 3, C, batches, tau_split, pallas_head=True)
+        split_p = br_evaluator_entropy_fused(model, 3, C, batches, tau_split)
+        print(f"[main-path] first-exit entropies {[round(e, 6) for e in ent1]}; "
+              f"tau {tau_split:.6f}: kernel head {split_k}, plain head {split_p}")
+        check(split_k["b1_count"] == i + 1, f"tau split: b1_count {split_k['b1_count']} != {i + 1}")
+        check_same_row("tau split, kernel head vs plain head:", split_k, split_p)
+
+        # the same for the similarity gate: a tau in the widest gap
+        # between the exit-0/exit-1 similarities sends the images above
+        # it to exit 2 (b2); exit 1 (b1) is never a gate position with
+        # two branches
+        for metric in ("ssim", "nmi"):
             with torch.inference_mode():
-                ent1 = torch.cat([
-                    U.upsample_entropy_argmax(
-                        model.lowres_logits(torch.from_numpy(b["image"]).cuda())[0],
-                        (512, 512))[1][:b["count"]]
+                sims = torch.cat([
+                    batched_similarity(torch.stack([
+                        U.upsample_argmax(l, (512, 512))
+                        for l in model.lowres_logits(torch.from_numpy(b["image"]).cuda())[:2]
+                    ]), metric, C, (C - 1,))[0, :b["count"]]
                     for b in batches]).sort().values.tolist()
-            gap, i = max((ent1[j + 1] - ent1[j], j) for j in range(len(ent1) - 1))
-            check(gap > 1e-5, f"first-exit entropies too close to split: {ent1}")
-            tau_split = (ent1[i] + ent1[i + 1]) / 2
-            split_k = br_evaluator_entropy_fused(model, 3, C, batches, tau_split, pallas_head=True)
-            split_p = br_evaluator_entropy_fused(model, 3, C, batches, tau_split)
-            print(f"[main-path] first-exit entropies {[round(e, 6) for e in ent1]}; "
+            gap, i = max((sims[j + 1] - sims[j], j) for j in range(len(sims) - 1))
+            check(gap > 1e-5, f"exit-0/exit-1 {metric} too close to split: {sims}")
+            tau_split = (sims[i] + sims[i + 1]) / 2
+            split_k = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
+                                                    ignore=(C - 1,), pallas_head=True)
+            split_p = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
+                                                    ignore=(C - 1,))
+            print(f"[main-path] exit-0/exit-1 {metric} {[round(v, 6) for v in sims]}; "
                   f"tau {tau_split:.6f}: kernel head {split_k}, plain head {split_p}")
-            check(split_k["b1_count"] == i + 1, f"tau split: b1_count {split_k['b1_count']} != {i + 1}")
-            check_same_row("tau split, kernel head vs plain head:", split_k, split_p)
-
-            # the same for the similarity gate: a tau in the widest gap
-            # between the exit-0/exit-1 similarities sends the images above
-            # it to exit 2 (b2); exit 1 (b1) is never a gate position with
-            # two branches
-            for metric in ("ssim", "nmi"):
-                with torch.inference_mode():
-                    sims = torch.cat([
-                        batched_similarity(torch.stack([
-                            U.upsample_argmax(l, (512, 512))
-                            for l in model.lowres_logits(torch.from_numpy(b["image"]).cuda())[:2]
-                        ]), metric, C, (C - 1,))[0, :b["count"]]
-                        for b in batches]).sort().values.tolist()
-                gap, i = max((sims[j + 1] - sims[j], j) for j in range(len(sims) - 1))
-                check(gap > 1e-5, f"exit-0/exit-1 {metric} too close to split: {sims}")
-                tau_split = (sims[i] + sims[i + 1]) / 2
-                split_k = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
-                                                        ignore=(C - 1,), pallas_head=True)
-                split_p = br_evaluator_similarity_fused(model, 3, C, batches, metric, tau_split,
-                                                        ignore=(C - 1,))
-                print(f"[main-path] exit-0/exit-1 {metric} {[round(v, 6) for v in sims]}; "
-                      f"tau {tau_split:.6f}: kernel head {split_k}, plain head {split_p}")
-                want_b2 = len(sims) - (i + 1)
-                check(split_k["b1_count"] == 0 and split_k["b2_count"] == want_b2,
-                      f"{metric} tau split: b1_count {split_k['b1_count']}, b2_count "
-                      f"{split_k['b2_count']} (want 0 and {want_b2})")
-                check_same_row(f"{metric} tau split, kernel head vs plain head:", split_k, split_p)
-        finally:
-            os.chdir(cwd)
+            want_b2 = len(sims) - (i + 1)
+            check(split_k["b1_count"] == 0 and split_k["b2_count"] == want_b2,
+                  f"{metric} tau split: b1_count {split_k['b1_count']}, b2_count "
+                  f"{split_k['b2_count']} (want 0 and {want_b2})")
+            check_same_row(f"{metric} tau split, kernel head vs plain head:", split_k, split_p)
+    finally:
+        os.chdir(cwd)
 
     for (key, head), row in rows.items():
         schema = {"miou": MIOU_SCHEMA, "ent": ENT_SCHEMA}.get(key, SIM_SCHEMA)
@@ -1193,6 +1213,257 @@ def main_path(U, torch):
             check_same_row(f"{key}, kernel head vs plain head:", rows[key, "kernel"][0],
                            rows[key, "plain"][0])
     return launches, ips, in_step
+
+
+# the JAX CLIs' ee_dnn_op columns (ee_dnn_op.py:229-255, sorted, net_id first)
+EE_ENT_SCHEMA = ["net_id", "avg_flops", "e_1", "e_2", "edge_flops", "mIoU", "metric", "n_imgs",
+                 "out", "t", "x", "y"]
+EE_SIM_SCHEMA = ["net_id", "avg_flops", "avg_flops_2", "e_1", "e_2", "edge_flops",
+                 "edge_flops_2", "ig_bk", "mIoU", "metric", "n_imgs", "out", "t", "x", "y"]
+EE_EXITS = ("e_1", "e_2", "out")
+
+
+def split_tau(first, every, what):
+    """A tau between two of the first gated exit's values (so the images
+    split), the one farthest from every gate value the engines compare;
+    it must be more than 1e-5 from each, so that the kernel head's and the
+    plain head's float32 roundings cannot move an image across it."""
+    first = sorted(first)
+    mids = [(a + b) / 2 for a, b in zip(first, first[1:])]
+    tau = max(mids, key=lambda t: min(abs(t - v) for v in every))
+    margin = min(abs(tau - v) for v in every)
+    check(margin > 1e-5, f"{what}: no tau splits the images by 1e-5: {sorted(every)}")
+    return tau
+
+
+def implied_launches(exits, n):
+    """(kernel B, kernel C) launches of the masked engine's kernel head on
+    one micro-batch whose rows exit at ``exits`` (1-based, n + 1 = the final
+    head): gated stage k runs while a row has exit > k, the final head while
+    a row has exit n + 1."""
+    top = max(exits)
+    return min(top, n), int(top == n + 1)
+
+
+def ee_path(U, torch, ckpt):
+    """Phase 4c: the early-exit engines on the flagship checkpoint ``ckpt``.
+    Returns the masked path's B and C launches, the engines' images/s and
+    B's and C's device ms inside one masked micro-batch."""
+    import numpy as np
+    from PIL import Image
+
+    from ee_semantic_segmentation_tpu_torch.cli import ee_dnn_op, ee_dnn_op_ne, eval_flops, eval_image
+    from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
+    from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+    from ee_semantic_segmentation_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+    from ee_semantic_segmentation_tpu_torch.ee.masked import make_masked_gated_apply
+    from ee_semantic_segmentation_tpu_torch.ee.sequential import EarlyExitRunner
+    from ee_semantic_segmentation_tpu_torch.ops.gating import batched_norm_entropy, batched_similarity
+
+    n_img, bs, n = 16, 12, 2
+    B, Ck = U.upsample_entropy_argmax, U.upsample_argmax
+    model = load_model(ckpt, torch.device("cuda"))
+    batches = list(DataLoader(resolve_test_set("synthetic", 512), bs))
+    check([b["count"] for b in batches] == [12, 4], "phase 4c wants micro-batches of 12 and 4")
+    xs = [torch.from_numpy(b["image"]).cuda() for b in batches]
+
+    # gate values with the plain head, valid rows only: each branch's
+    # entropy, the exit-0/exit-1 similarity (the only similarity gate of
+    # two branches: the first gated exit seeds)
+    ents, sims = [], {"ssim": [], "nmi": []}
+    with torch.inference_mode():
+        for x, b in zip(xs, batches):
+            out = model(x)[:, :b["count"]]
+            ents.append(batched_norm_entropy(out[:-1], C))
+            maps = out[:2].argmax(dim=-1)
+            for m in sims:
+                sims[m].append(batched_similarity(maps, m, C, (0, C - 1))[0])
+            del out, maps
+    ent = torch.cat(ents, dim=1).tolist()  # (n, 16)
+    sims = {m: torch.cat(v).tolist() for m, v in sims.items()}
+    tau = split_tau(ent[0], ent[0] + ent[1], "entropy")
+    tau_sim = {m: split_tau(v, v, m) for m, v in sims.items()}
+    below = sum(e < tau for e in ent[0])
+    print(f"[ee-path] first-exit entropies {[round(e, 6) for e in sorted(ent[0])]}: tau "
+          f"{tau!r} ({below} below); ssim tau {tau_sim['ssim']!r}, nmi tau {tau_sim['nmi']!r}")
+
+    base = ["-M", ckpt, "-s", "512", "512", "-d", "synthetic", "-n", str(C)]
+    masked = ["--engine", "masked", "-b", str(bs)]
+    runs = {  # name -> (CLI, argv, CSV it appends to)
+        "seq ent": (ee_dnn_op_ne, ["-m", "ent", "-t", repr(tau)], "ee_2_ent_lw_m2_res.csv"),
+        "masked ent plain head": (ee_dnn_op_ne, ["-m", "ent", "-t", repr(tau)] + masked,
+                                  "ee_2_ent_lw_m2_res.csv"),
+        "masked ent kernel head": (ee_dnn_op_ne, ["-m", "ent", "-t", repr(tau), "--pallas_head"]
+                                   + masked, "ee_2_ent_lw_m2_res.csv"),
+        "masked ent kernel head, tau above every entropy": (
+            ee_dnn_op_ne, ["-m", "ent", "-t", "1.01", "--pallas_head"] + masked,
+            "ee_2_ent_lw_m2_res.csv"),
+        "masked ent kernel head, tau below every entropy": (
+            ee_dnn_op_ne, ["-m", "ent", "-t", "0", "--pallas_head"] + masked,
+            "ee_2_ent_lw_m2_res.csv"),
+        "masked max -p 2, --pallas_head (plain head)": (
+            ee_dnn_op_ne, ["-m", "max", "-p", "2", "-t", repr(tau), "--pallas_head"] + masked,
+            "ee_2_max_lw_m2_res.csv"),
+        "seq ssim -i": (ee_dnn_op, ["-m", "ssim", "-i", "-t", repr(tau_sim["ssim"])],
+                        "ee_2_ssim_lw_m2_res.csv"),
+        "seq nmi -i": (ee_dnn_op, ["-m", "nmi", "-i", "-t", repr(tau_sim["nmi"])],
+                       "ee_2_nmi_lw_m2_res.csv"),
+        "masked nmi -i": (ee_dnn_op, ["-m", "nmi", "-i", "-t", repr(tau_sim["nmi"])] + masked,
+                          "ee_2_nmi_lw_m2_res.csv"),
+    }
+    rows, counts = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for name, (cli, argv, csv_name) in runs.items():
+                for k in U.KERNELS:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                cli.main(base + argv)
+                torch.cuda.synchronize()
+                counts[name] = {k.__name__: k.launches for k in U.KERNELS}
+                got = read_csv(csv_name)
+                rows[name] = got[-1]
+                schema = EE_ENT_SCHEMA if cli is ee_dnn_op_ne else EE_SIM_SCHEMA
+                check(list(got[-1]) == schema, f"{name}: CSV columns {list(got[-1])} != {schema}")
+                exits = [int(rows[name][k]) for k in EE_EXITS]
+                print(f"[ee-path] {cli.__name__.rsplit('.', 1)[1]} {name}: "
+                      f"{time.perf_counter() - t0:.2f} s wall (load + data + engine), exits "
+                      f"{dict(zip(EE_EXITS, exits))}, mIoU {rows[name]['mIoU']}, avg_flops "
+                      f"{rows[name]['avg_flops']}, launches {counts[name]}")
+                check(sum(exits) == int(rows[name]["n_imgs"]) == n_img,
+                      f"{name}: exits {exits} do not sum to {n_img}")
+
+            # eval_flops reads only the sidecar; eval_image writes a PNG an exit
+            eval_flops.main(["-M", ckpt, "-s", "512"])
+            (flops_row,) = read_csv("2_branches_model_flops.csv")
+            want_cols = ["net_id", "x", "y", "b1_flops", "b2_flops", "b3_flops"]
+            check(list(flops_row) == want_cols, f"eval_flops columns {list(flops_row)}")
+            cum = model.flops_table(512)["cumulative_exits"]
+            got_flops = [int(flops_row[f"b{i + 1}_flops"]) for i in range(3)]
+            print(f"[ee-path] eval_flops -s 512: {got_flops} (flops_table(512): {cum})")
+            check(got_flops == cum, "eval_flops b{i}_flops != flops_table(512)")
+            g = torch.Generator().manual_seed(4)
+            rgb = (torch.rand((384, 512, 3), generator=g) * 255).to(torch.uint8).numpy()
+            Image.fromarray(rgb).save("probe.png")
+            t0 = time.perf_counter()
+            eval_image.main(["-M", ckpt, "-i", "probe.png"])
+            torch.cuda.synchronize()
+            x = (rgb.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+            with torch.inference_mode():
+                want = model(torch.from_numpy(x[None]).cuda()).argmax(dim=-1)[:, 0].cpu().numpy()
+            for i in range(3):
+                png = Image.open(f"flagship_images/probe_b{i + 1}.png")
+                agree = float((want[i] == np.asarray(png)).mean())
+                check(png.mode == "P" and png.size == (512, 384) and agree >= TOL_MAP_AGREE,
+                      f"eval_image probe_b{i + 1}.png: mode {png.mode}, size {png.size}, "
+                      f"{agree} of its pixels the exit's argmax")
+            print(f"[ee-path] eval_image 512x384 probe: 3 palette PNGs, their indices the exits' "
+                  f"argmax, {time.perf_counter() - t0:.2f} s wall")
+        finally:
+            os.chdir(cwd)
+
+    seq, plain, kern = (rows[k] for k in ("seq ent", "masked ent plain head",
+                                          "masked ent kernel head"))
+    check(int(seq["e_1"]) == below, f"seq ent e_1 {seq['e_1']} != {below} below tau")
+    for name in ("masked ent plain head", "masked ent kernel head"):
+        for col in EE_EXITS:
+            check(rows[name][col] == seq[col], f"{name} {col} {rows[name][col]} != seq's {seq[col]}")
+        for col in ("avg_flops", "edge_flops"):
+            check(math.isclose(float(rows[name][col]), float(seq[col]), rel_tol=1e-12),
+                  f"{name} {col} {rows[name][col]} != seq's {seq[col]}")
+    for col in ("avg_flops", "edge_flops"):
+        check(kern[col] == plain[col], f"kernel head {col} {kern[col]} != plain head's {plain[col]}")
+    check(abs(float(kern["mIoU"]) - float(plain["mIoU"])) <= TOL_MIOU_ABS,
+          f"masked ent mIoU: kernel head {kern['mIoU']} vs plain head {plain['mIoU']}")
+    for m, name in (("ssim", "seq ssim -i"), ("nmi", "seq nmi -i")):
+        above = sum(v > tau_sim[m] for v in sims[m])  # ssim and nmi fire on sim > tau
+        check((rows[name]["e_1"], rows[name]["e_2"]) == ("0", str(above)),
+              f"{name}: e_1 {rows[name]['e_1']}, e_2 {rows[name]['e_2']} (want 0 and {above})")
+    for col in EE_EXITS + ("avg_flops", "avg_flops_2", "edge_flops", "edge_flops_2"):
+        a, b = rows["masked nmi -i"][col], rows["seq nmi -i"][col]
+        check(math.isclose(float(a), float(b), rel_tol=1e-12), f"nmi {col}: masked {a}, seq {b}")
+    check(abs(float(rows["masked nmi -i"]["mIoU"]) - float(rows["seq nmi -i"]["mIoU"]))
+          <= TOL_MIOU_ABS, "nmi mIoU: masked vs seq")
+
+    # the kernel head's launches, exactly: from each micro-batch's exits
+    # (padded rows included) of the same engine called directly
+    fn_k = make_masked_gated_apply(model, tau=tau, n_classes=C, pallas_head=True)
+    fn_p = make_masked_gated_apply(model, tau=tau, n_classes=C)
+    check(fn_k.kernel_head and not fn_p.kernel_head, "the masked engine picked the wrong head")
+    row_exits = [fn_k(x)[1].tolist() for x in xs]
+    hist = [e for r, b in zip(row_exits, batches) for e in r[:b["count"]]]
+    check([hist.count(e) for e in (1, 2, 3)] == [int(kern[c]) for c in EE_EXITS],
+          f"direct masked exits {hist} != the CLI's histogram")
+    implied = [implied_launches(r, n) for r in row_exits]
+    want = {"split tau": tuple(map(sum, zip(*implied))), "above": (2, 0), "below": (4, 2)}
+    for key, name in (("split tau", "masked ent kernel head"),
+                      ("above", "masked ent kernel head, tau above every entropy"),
+                      ("below", "masked ent kernel head, tau below every entropy")):
+        got = (counts[name][B.__name__], counts[name][Ck.__name__])
+        print(f"[ee-path] {name}: B, C launched {got}, the exits imply {want[key]}")
+        check(got == want[key], f"{name}: B, C launched {got}, want {want[key]}")
+        check(counts[name][U.upsample_argmax_confusion.__name__] == 0, f"{name} launched A")
+    for name in ("seq ent", "masked ent plain head", "masked max -p 2, --pallas_head (plain head)",
+                 "seq ssim -i", "seq nmi -i", "masked nmi -i"):
+        check(not any(counts[name].values()), f"{name}: a plain head launched {counts[name]}")
+
+    # images/s over the pre-loaded micro-batches (and single images for the
+    # sequential engine): the median of 3 passes after one warm-up pass
+    singles = [x[i:i + 1] for x, b in zip(xs, batches) for i in range(b["count"])]
+    runner = EarlyExitRunner(model, metric="ent", threshold=tau, n_classes=C, img_dim=512)
+    fn_above = make_masked_gated_apply(model, tau=1.01, n_classes=C, pallas_head=True)
+    seq_exits = []
+    ips = {}
+    for name, fn in (("masked kernel head", lambda: [fn_k(x) for x in xs]),
+                     ("masked plain head", lambda: [fn_p(x) for x in xs]),
+                     ("seq", lambda: seq_exits.append([runner(x)["n"] for x in singles])),
+                     ("masked kernel head, tau above every entropy",
+                      lambda: [fn_above(x) for x in xs])):
+        fn()
+        passes = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+        ips[name] = n_img / statistics.median(passes)
+        how = "one at a time" if name == "seq" else f"micro-batches of {bs}"
+        print(f"[ee-path] ee_dnn_op_ne {name}, ent tau {1.01 if 'above' in name else tau:.6f}: "
+              f"{ips[name]:.2f} images/s ({n_img} images at 512x512, {how}, pre-loaded; "
+              f"passes {[round(p * 1e3, 2) for p in passes]} ms)")
+    check(sorted(seq_exits[-1]) == sorted(hist), "sequential engine exits != masked engine's")
+
+    # B and C inside one masked micro-batch of 12 (torch.profiler), beside
+    # the batch's time (CUDA events, host reads included); device busy time
+    # from every kernel in the trace, the rest idle
+    in_batch = {}
+    for label, t in (("split tau", tau), ("tau above every entropy", 1.01)):
+        fn = make_masked_gated_apply(model, tau=t, n_classes=C, pallas_head=True)
+        nb, nc = implied_launches(fn(xs[0])[1].tolist(), n)
+        batch_ms = median_ms(lambda: fn(xs[0]), 5, 1)
+        want_k = {"up_ent_argmax_kernel": nb, **({"up_argmax_map_kernel": nc} if nc else {})}
+        trace = per_kernel_ms(lambda: fn(xs[0]), torch, want_k)
+        if trace is None:
+            print(f"[ee-profile] masked kernel head, {label}: not measured")
+            in_batch[label] = {"B": None, "C": None}
+            continue
+        b_n, b_ms = kernels_of(trace, ("up_ent_argmax_kernel", "ent_finalize_kernel"))
+        c_n, c_ms = kernels_of(trace, ("up_argmax_map_kernel",))
+        busy = sum(ms for _, ms in trace.values())
+        in_batch[label] = {"B": b_ms, "C": c_ms if nc else None, "batch_ms": batch_ms,
+                           "busy_ms": busy}
+        print(f"[ee-profile] masked kernel head, {label}, one micro-batch of {bs} at 512x512 "
+              f"({nb} gated stages, final head {'run' if nc else 'skipped'}): kernel B "
+              f"({b_n} CUDA launches) {b_ms:.4f} ms = {100 * b_ms / batch_ms:.3f} %, kernel C "
+              f"({c_n}) {c_ms:.4f} ms = {100 * c_ms / batch_ms:.3f} % of the {batch_ms:.2f} ms "
+              f"batch; device busy {busy:.2f} ms, idle {batch_ms - busy:.2f} ms "
+              f"({100 * (batch_ms - busy) / batch_ms:.1f} %)")
+    launches = {B.__name__: counts["masked ent kernel head"][B.__name__],
+                Ck.__name__: counts["masked ent kernel head"][Ck.__name__]}
+    return launches, ips, in_batch
 
 
 KERNEL_INFO = (
@@ -1261,8 +1532,11 @@ def main() -> int:
     # the main paths run with PyTorch's defaults, as a user's CLI call does
     torch.backends.cudnn.allow_tf32 = True
 
-    # ---------------------------------------------------------------- phase 4
-    launches, ips, eval_in_step = main_path(U, torch)
+    # ------------------------------------------------------------ phases 4, 4c
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = flagship_checkpoint(tmp, torch)
+        launches, ips, eval_in_step = main_path(U, torch, tmp, ckpt)
+        ee_launches, ee_ips, ee_in_batch = ee_path(U, torch, ckpt)
 
     # --------------------------------------------------------------- phase 4b
     launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
@@ -1281,6 +1555,9 @@ def main() -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "in_step_ms": eval_in_step[key],
             **({"ms_trained_law": m["ms_trained"]} if "ms_trained" in m else {}),
+            **({"masked_path_launches": ee_launches[name],
+                "masked_in_batch_ms": {label: v[key] for label, v in ee_in_batch.items()}}
+               if name in ee_launches else {}),
         })
     for name, by_shape in sort_measured.items():
         m = by_shape[SORT_MAIN_SHAPE]  # the -P row shape, beside the default's
@@ -1325,6 +1602,7 @@ def main() -> int:
                for b in HIST_WIDE_BINS},
         })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
+                      "ee_images_per_s": ee_ips, "ee_masked_batch_profile": ee_in_batch,
                       "train_images_per_s": train_ips,
                       "loss_kernel_share_of_train_step": kernel_share}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Shared CLI plumbing: device choice, checkpoint loading, dataset
-resolution, CSV append.
+"""Shared CLI plumbing: device choice, checkpoint loading, the eval forward,
+dataset resolution, CSV append.
 
 Port of ``ee_semantic_segmentation_tpu/cli/common.py`` without the mesh.  A
 "model" is a checkpoint path whose ``<path>.json`` sidecar holds the
@@ -29,6 +29,20 @@ def resolve_device(name: str) -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; pass --device cpu to run on the CPU")
     return torch.device(name)
+
+
+def forward_fn(model):
+    """Eval forward: images (N, H, W, 3), numpy or a tensor -> (E, N, H, W,
+    C) float32 logits on the model's device, under ``inference_mode`` with
+    the model in eval mode."""
+    device = next(model.parameters()).device
+    model.eval()
+
+    def f(images):
+        with torch.inference_mode():
+            return model(torch.as_tensor(images, dtype=torch.float32).to(device))
+
+    return f
 
 
 def resolve_dims(dimensions) -> int | tuple[int, int]:

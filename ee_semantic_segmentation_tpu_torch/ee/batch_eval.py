@@ -10,6 +10,11 @@ Port of the serving half of ``ee_semantic_segmentation_tpu/ee/batch_eval.py``:
 * per-exit confusion counts are reduced on the device and only (E, 3, C)
   tensors (or, per image, (N,) scores) come back to the host per batch.
 
+The ``*_fused`` evaluators take the model.  ``mIoU_evaluator`` and
+``br_evaluator_entropy`` take a forward function instead (images ->
+(E, N, H, W, C) logits, e.g. ``cli/common.forward_fn``), as the JAX
+package's do.
+
 Two heads compute the label maps or counts.  The plain head runs the full
 forward (``F.interpolate`` upsample), argmax and a bincount.  The kernel
 head runs ``lowres_logits`` and hands each exit's low-res logits to the
@@ -111,6 +116,26 @@ def mIoU_evaluator_fused(model, n_exits, n_classes, loader, *, empty_class="nan"
     return res
 
 
+def mIoU_evaluator(forward_fn, n_exits, n_classes, loader, *, empty_class="nan"):
+    """Per-exit dataset mIoU (eval_mIoU.py:15-40 equivalent) through
+    ``forward_fn(images (N, H, W, 3)) -> (E, N, H, W, C)`` logits.  Returns
+    ``{'b1_mIoU': ..., ..., 'mIoU': ...}``; ``empty_class`` as in
+    :func:`mIoU_evaluator_fused`."""
+    accs = [mIoU(n_classes, empty_class=empty_class) for _ in range(n_exits)]
+    with torch.inference_mode():
+        for batch in loader:
+            out = forward_fn(batch["image"])
+            count = int(batch.get("count", out.shape[1]))
+            labels = torch.as_tensor(batch["label"][:count]).to(out.device)
+            conf = torch.stack([confusion_update(o[:count], labels, n_classes) for o in out])
+            conf = conf.double().cpu().numpy()
+            for i in range(n_exits):
+                accs[i].accumulator += conf[i]
+    res = {f"b{i + 1}_mIoU": accs[i].compute() for i in range(n_exits - 1)}
+    res["mIoU"] = accs[-1].compute()
+    return res
+
+
 def _finalize_gated(res_accs, out_counts, n_branches, tau, extra):
     res = {}
     for i in range(n_branches):
@@ -140,6 +165,27 @@ def _bucketed_confusion_masked(preds, labels, exit_idx, valid, num_classes: int)
     bucketed = torch.stack([masked_sum(preds[e], (exit_idx == e) & valid) for e in range(E)])
     chosen = preds[exit_idx, torch.arange(N, device=preds.device)]
     return bucketed, masked_sum(chosen, valid)
+
+
+def _accumulate_gated(accs, counts, bucketed, chosen_conf, exit_counts, count):
+    """Add one batch's per-exit and chosen-map counts to the ``mIoU``
+    accumulators (the exits', then the chosen maps' last) and its exit
+    histogram and image count to ``counts``."""
+    bucketed = bucketed.double().cpu().numpy()
+    for e in range(len(bucketed)):
+        accs[e].accumulator += bucketed[e]
+    accs[-1].accumulator += chosen_conf.double().cpu().numpy()
+    counts[:-1] += exit_counts
+    counts[-1] += count
+
+
+def _first_firing(fires, skip: int, n_branches: int):
+    """(n_branches, N) gate results -> (N,) exit: the first branch i >= skip
+    whose gate fires, else ``n_branches`` (the final head)."""
+    fires = fires.clone()
+    fires[:skip] = False
+    first = fires.to(torch.uint8).argmax(dim=0)  # first firing exit
+    return torch.where(fires.any(dim=0), first, n_branches)
 
 
 def br_evaluator_entropy_fused(
@@ -178,10 +224,7 @@ def br_evaluator_entropy_fused(
             preds = stacked.argmax(dim=-1)
         exit_idx = torch.full((N,), n_branches, dtype=torch.long, device=images.device)
         if n_branches:
-            fires = torch.stack(ent) < tau  # (E-1, N)
-            fires[:skip] = False
-            first = fires.to(torch.uint8).argmax(dim=0)  # first firing exit
-            exit_idx = torch.where(fires.any(dim=0), first, exit_idx)
+            exit_idx = _first_firing(torch.stack(ent) < tau, skip, n_branches)
         valid = torch.arange(N, device=images.device) < count
         bucketed, chosen_conf = _bucketed_confusion_masked(
             preds, labels, exit_idx, valid, num_classes=n_classes)
@@ -194,13 +237,35 @@ def br_evaluator_entropy_fused(
             count = int(batch.get("count", len(batch["image"])))
             images, labels = _to_device(batch, device)
             bucketed, chosen_conf, bucket_counts = body(images, labels, count)
-            bucketed = bucketed.double().cpu().numpy()
-            for e in range(n_exits):
-                accs[e].accumulator += bucketed[e]
-            accs[-1].accumulator += chosen_conf.double().cpu().numpy()
-            counts[:n_exits] += bucket_counts.cpu().numpy()
-            counts[-1] += count
+            _accumulate_gated(accs, counts, bucketed, chosen_conf, bucket_counts.cpu().numpy(),
+                              count)
 
+    return _finalize_gated(accs, counts, n_branches, tau, {"pool": metric, "pool_size": size})
+
+
+def br_evaluator_entropy(
+    forward_fn, n_exits, n_classes, loader, tau, *, metric="ent", size=1, skip=0
+):
+    """The entropy-gated policy of :func:`br_evaluator_entropy_fused` through
+    ``forward_fn(images (N, H, W, 3)) -> (E, N, H, W, C)`` logits (the plain
+    head): the same accumulators and result."""
+    n_branches = n_exits - 1
+    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
+    counts = np.zeros(n_exits + 1, np.int64)
+    pool_mode = {"ent": "none", "max": "max", "min": "min"}[metric.lower()]
+    with torch.inference_mode():
+        for batch in loader:
+            out = forward_fn(batch["image"])
+            count = int(batch.get("count", out.shape[1]))
+            stacked = out[:, :count]
+            labels = torch.as_tensor(batch["label"][:count]).to(out.device)
+            ent = batched_norm_entropy(stacked[:-1], n_classes, pool_mode, size)  # (E-1, N)
+            exit_idx = _first_firing(ent < tau, skip, n_branches)
+            valid = torch.ones(count, dtype=torch.bool, device=out.device)
+            bucketed, chosen_conf = _bucketed_confusion_masked(
+                stacked.argmax(dim=-1), labels, exit_idx, valid, num_classes=n_classes)
+            _accumulate_gated(accs, counts, bucketed, chosen_conf,
+                              np.bincount(exit_idx.cpu().numpy(), minlength=n_exits), count)
     return _finalize_gated(accs, counts, n_branches, tau, {"pool": metric, "pool_size": size})
 
 
@@ -257,12 +322,9 @@ def br_evaluator_similarity_fused(
             valid = torch.arange(images.shape[0], device=device) < count
             bucketed, chosen_conf = _bucketed_confusion_masked(
                 preds, labels, exit_idx, valid, num_classes=n_classes)
-            bucketed = bucketed.double().cpu().numpy()
-            for e in range(n_exits):
-                accs[e].accumulator += bucketed[e]
-            accs[-1].accumulator += chosen_conf.double().cpu().numpy()
-            counts[:n_exits] += np.bincount(exit_idx[:count].cpu().numpy(), minlength=n_exits)
-            counts[-1] += count
+            _accumulate_gated(accs, counts, bucketed, chosen_conf,
+                              np.bincount(exit_idx[:count].cpu().numpy(), minlength=n_exits),
+                              count)
     return _finalize_gated(accs, counts, n_branches, tau, {"metric": metric})
 
 

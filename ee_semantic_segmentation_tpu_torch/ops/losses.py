@@ -1,8 +1,9 @@
-"""Helpers shared by the training losses (channels-last).
+"""Helpers shared by the training losses and the PRF metrics (channels-last).
 
-Port of the two helpers of ``ee_semantic_segmentation_tpu/ops/losses.py``
-that the multi-exit Lovász and cross-entropy losses use.  The single-exit
-loss classes (Dice, Jaccard, Tversky, Focal) are a ROADMAP.md item.
+Port of the helpers of ``ee_semantic_segmentation_tpu/ops/losses.py`` that
+the multi-exit Lovász and cross-entropy losses and ``ops/metrics.py`` use.
+The single-exit loss classes (Dice, Jaccard, Tversky, Focal) are a
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -18,6 +19,20 @@ def _squeeze_target(targets: torch.Tensor) -> torch.Tensor:
         elif targets.shape[1] == 1:
             targets = targets[:, 0]
     return targets.to(torch.int32)
+
+
+def apply_reduction(loss: torch.Tensor, reduction: str | None) -> torch.Tensor:
+    """SegLoss.forward reduction contract (new_seg_losses.py:17-32)."""
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    dims = tuple(range(1, loss.ndim))  # none for a (N,) loss: torch reads () as all
+    if reduction == "mean_batchwise":
+        return loss.mean(dim=dims) if dims else loss
+    if reduction == "sum_batchwise":
+        return loss.sum(dim=dims) if dims else loss
+    return loss
 
 
 def select_class(values: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

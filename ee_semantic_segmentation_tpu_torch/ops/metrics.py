@@ -1,9 +1,10 @@
-"""Segmentation metrics: confusion counts, the streaming dataset mIoU and the
-per-image mIoU.
+"""Segmentation metrics: confusion counts, the streaming dataset mIoU, the
+per-image mIoU and the PRF metrics.
 
-Port of the evaluation half of ``ee_semantic_segmentation_tpu/ops/metrics.py``
-(``confusion_counts``, ``confusion_update``, ``mIoU``, ``_img_miou_one``,
-``img_mIoU``).  Semantics are the JAX package's: a void label (outside
+Port of ``ee_semantic_segmentation_tpu/ops/metrics.py`` (``confusion_counts``,
+``confusion_update``, ``mIoU``, ``_img_miou_one``, ``img_mIoU``, and the
+reduction-style ``SegMetric``, ``Recall``, ``Precision``, ``F_beta`` and
+``Accuracy``).  Semantics are the JAX package's: a void label (outside
 ``[0, C)``) matches no class, so its pixel counts as FP for the predicted
 class only.
 
@@ -19,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ee_semantic_segmentation_tpu_torch.ops.losses import apply_reduction
+
 
 def _squeeze_target(targets: torch.Tensor) -> torch.Tensor:
     """Accept (N,H,W), (N,H,W,1) or (N,1,H,W)-style targets, return (N,H,W)."""
@@ -28,6 +31,13 @@ def _squeeze_target(targets: torch.Tensor) -> torch.Tensor:
         elif targets.shape[1] == 1:
             targets = targets[:, 0]
     return targets.long()
+
+
+def _flatten_pixels(y_pred: torch.Tensor, targets: torch.Tensor):
+    """(N, H, W, C) logits and their targets -> predicted and true labels,
+    each (N, P)."""
+    N = y_pred.shape[0]
+    return y_pred.argmax(dim=-1).reshape(N, -1), _squeeze_target(targets).reshape(N, -1)
 
 
 def confusion_counts(y_pred: torch.Tensor, targets: torch.Tensor,
@@ -143,3 +153,64 @@ class img_mIoU:
 
     def compute(self) -> float:
         return self.total / self.count if self.count > 0 else float("nan")
+
+
+class SegMetric:
+    """Base for reduction-style metrics (seg_metrics.py:8-28) on (N, H, W, C)
+    logits.  ``avg``: 'macro' (per-class ratios averaged), 'micro' (counts
+    summed over classes first) or anything else (per-class ratios)."""
+
+    def __init__(self, smooth=1e-6, reduction="mean", avg="macro"):
+        self.smooth = smooth
+        self.reduction = reduction
+        self.avg = avg
+
+    def _compute_basics(self, y_pred, targets):
+        tp, fp, fn = confusion_counts(y_pred, targets, num_classes=y_pred.shape[-1])
+        return tp.float(), fp.float(), fn.float()
+
+    def _compute_loss(self, y_pred, targets):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __call__(self, y_pred, targets):
+        return apply_reduction(self._compute_loss(y_pred, _squeeze_target(targets)), self.reduction)
+
+
+class Recall(SegMetric):
+    def _compute_loss(self, y_pred, targets):
+        tp, _, fn = self._compute_basics(y_pred, targets)
+        if self.avg == "macro":
+            return ((tp + self.smooth) / (tp + fn + self.smooth)).mean(dim=-1)
+        if self.avg == "micro":
+            tp, fn = tp.sum(-1), fn.sum(-1)
+        return (tp + self.smooth) / (tp + fn + self.smooth)
+
+
+class Precision(SegMetric):
+    def _compute_loss(self, y_pred, targets):
+        tp, fp, _ = self._compute_basics(y_pred, targets)
+        if self.avg == "macro":
+            return ((tp + self.smooth) / (tp + fp + self.smooth)).mean(dim=-1)
+        if self.avg == "micro":
+            tp, fp = tp.sum(-1), fp.sum(-1)
+        return (tp + self.smooth) / (tp + fp + self.smooth)
+
+
+class F_beta(SegMetric):
+    def __init__(self, beta=1.0, smooth=1e-6, reduction="mean", avg="macro"):
+        super().__init__(smooth, reduction, avg)
+        self.beta = beta
+
+    def _compute_loss(self, y_pred, targets):
+        tp, fp, fn = self._compute_basics(y_pred, targets)
+        b2 = self.beta**2
+        if self.avg == "micro":
+            tp, fp, fn = tp.sum(-1), fp.sum(-1), fn.sum(-1)
+        f = ((1 + b2) * tp + self.smooth) / ((1 + b2) * tp + b2 * fn + fp + self.smooth)
+        return f.mean(dim=-1) if self.avg == "macro" else f
+
+
+class Accuracy(SegMetric):
+    def _compute_loss(self, y_pred, targets):
+        pred, tgt = _flatten_pixels(y_pred, targets)
+        return (pred == tgt).float().mean(dim=1)
