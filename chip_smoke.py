@@ -22,6 +22,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    B, A and C at their edge cases (40 classes, bf16 logits, H not a
    multiple of the band, W not a multiple of 4, no resize, column tiles),
    and C where no band fits shared memory (20000 classes: it must raise);
+   A, B and C also at the 2-exit MobileNetV3's shape (``MNV3_SHAPE``: N=12,
+   32x32 -> 512x512, a 16x upsample; f32 timed, bf16 checked), with the
+   flagship's checks and kernel, plain, library and bound times;
 3b. the sort kernel D vs its plain version (TF32 off) at the flagship's
    Lovász row shapes (63 rows of 2^22, 1008 of 2^18), one and two tiles,
    1024, a ragged row, heavy ties, +-0/+-NaN/+-inf/+-1e30 keys, int32 keys
@@ -80,6 +83,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    pre-loaded batches, and one masked micro-batch at the split tau and at a
    tau above every entropy under ``torch.profiler``: B's and C's device
    time, their share of the batch, and the device's idle time;
+4e. the batched early-exit server (``ee/serving.py``) on the same
+   checkpoint: 48 pre-loaded images (the 16 test images three times) at
+   micro-batch 12 and phase 4c's split tau: exits equal the masked
+   engine's plain head on the same micro-batches, maps agree on
+   TOL_MAP_AGREE of the pixels; ``stats()`` and images/s;
+4f. the serving artifacts (``ee/aot.py``): ``export_gated(batch_size=12,
+   pallas_head=True)`` at the split tau, saved, loaded and run on the two
+   test micro-batches: labels and exits equal the eager masked kernel
+   head's, kernels B and C launched (as PyTorch custom operators inside
+   the program) as the exits imply, and its images/s; then
+   ``export_eval_forward(batch_size=12)``: logits within TOL_EXPORT_REL of
+   the live model with TF32 off;
+4d. the 2-exit MobileNetV3 (``build_branchy_deeplabv3(n=2, img_dim=512,
+   backbone="mobilenet_v3_large")``, seeded random weights): its placement
+   (one branch after block 11, 112 channels) and FLOPs table;
+   ``eval_miou``, ``eval_br_ent`` and ``eval_br_sim`` (ssim) with both heads
+   (rows equal, A, B and C launched once an exit and a batch) and the
+   evaluators' images/s; one epoch of ``main_bradeepv3 -t mobilenet -n 2``
+   at batch 16 (3 exits; one sort and one unsort a step, finite loss);
 4b. training main path: the flagship trained through the CLIs
    ``main_bradeepv3`` (per-batch and per-image ``-P`` Lovász, and the
    histogram Lovász ``-G 1024``) and ``main_bradeepv3_ce`` for one epoch of
@@ -143,6 +165,9 @@ SORT_MAIN_SHAPE = "flagship per-batch 63x2^22"
 SORT_PER_IMAGE_SHAPE = "flagship per-image 1008x2^18"
 NAN_CASE = "+-0, +-NaN, +-inf, +-1e30 8x(2*67*101)"
 HIST_BINS = 1024  # -G of the training runs
+# the 2-exit MobileNetV3 at 512²: both exits' low-res logits are 32x32 (output
+# stride 16), so kernels A, B and C upsample 16x; its eval batch is 12
+MNV3_SHAPE = "mobilenet_v3 12x32x32->512x512"
 HIST_WIDE_BINS = (16384, 65536)  # above the 8192 buckets one block of kernel E keeps
 
 
@@ -266,7 +291,8 @@ def kernel_vs_plain(U, torch):
 
     results = {}
     cases = [("flagship", (16, 64, 64), (512, 512), 16), ("ragged", (3, 9, 13), (67, 101), 2),
-             ("padded batch", (12, 64, 64), (512, 512), 4)]  # eval's last batch: count 4 of 12
+             ("padded batch", (12, 64, 64), (512, 512), 4),  # eval's last batch: count 4 of 12
+             (MNV3_SHAPE, (12, 32, 32), (512, 512), 12)]  # MobileNetV3's exits, 16x
     for tag, (N, h, w), (H, W), count in cases:
         rng = np.random.RandomState(0)
         logits = torch.from_numpy((2 * rng.randn(N, h, w, C)).astype(np.float32)).cuda()
@@ -299,7 +325,7 @@ def kernel_vs_plain(U, torch):
         check(conf_l1 <= 3 * n_differ_valid,
               f"{tag}: confusion counts differ by {conf_l1} > 3 x {n_differ_valid} flipped pixels")
         check(ent_rel <= TOL_ENT_RTOL, f"{tag}: entropy rel err {ent_rel:.3g} > {TOL_ENT_RTOL}")
-        if tag != "flagship":
+        if tag not in ("flagship", MNV3_SHAPE):
             continue
 
         def library():  # yardstick: upsample + argmax only, no counts
@@ -317,12 +343,14 @@ def kernel_vs_plain(U, torch):
              lambda: U.upsample_argmax_plain(logits, (H, W)),
              float((maps_c - maps_p).abs().max())),
         ):
-            results[key] = dict(ms=median_ms(fn), plain_ms=median_ms(plain), library_ms=lib_ms,
-                                bound_ms=bounds[key][0], bound_by=bounds[key][1],
-                                max_abs_err=err)
-            print(f"[kernel-vs-plain] {key} at {tag}: kernel {results[key]['ms']:.4f} ms, "
-                  f"plain {results[key]['plain_ms']:.4f} ms, library (interpolate+argmax) "
+            res = dict(ms=median_ms(fn), plain_ms=median_ms(plain), library_ms=lib_ms,
+                       bound_ms=bounds[key][0], bound_by=bounds[key][1], max_abs_err=err)
+            results[key if tag == "flagship" else (key, tag)] = res
+            print(f"[kernel-vs-plain] {key} at {tag}: kernel {res['ms']:.4f} ms, "
+                  f"plain {res['plain_ms']:.4f} ms, library (interpolate+argmax) "
                   f"{lib_ms:.4f} ms, bound {bounds[key][0]:.4f} ms ({bounds[key][1]})")
+        if tag != "flagship":
+            continue
         print(f"[kernel-vs-plain] A at {tag}, one call per CUDA kernel [launches, ms]: "
               f"{per_kernel_ms(lambda: U.upsample_argmax_confusion(logits, labels, count, (H, W)), torch, {'up_argmax_conf_kernel': 1})}")
         # kernel A on a trained model's logits and labels: most of a block
@@ -369,6 +397,7 @@ def kernel_vs_plain(U, torch):
     b_cases = [
         ("C=40, above 32 classes", (2, 16, 16), 40, (128, 128), torch.float32),
         ("bf16 logits, flagship", (16, 64, 64), C, (512, 512), torch.bfloat16),
+        (f"bf16 logits, {MNV3_SHAPE}", (12, 32, 32), C, (512, 512), torch.bfloat16),
         ("H=70, not a multiple of the band", (2, 8, 8), C, (70, 64), torch.float32),
         ("W=66, not a multiple of 4", (2, 8, 8), C, (64, 66), torch.float32),
         ("no resize", (2, 64, 64), C, (64, 64), torch.float32),
@@ -1463,7 +1492,274 @@ def ee_path(U, torch, ckpt):
               f"({100 * (batch_ms - busy) / batch_ms:.1f} %)")
     launches = {B.__name__: counts["masked ent kernel head"][B.__name__],
                 Ck.__name__: counts["masked ent kernel head"][Ck.__name__]}
-    return launches, ips, in_batch
+    return launches, ips, in_batch, tau
+
+
+def mobilenet_path(U, S, torch):
+    """Phase 4d: the 2-exit MobileNetV3 branchy DeepLabV3 at 512² (seeded
+    random weights): its placement and FLOPs table, ``eval_miou``,
+    ``eval_br_ent`` and ``eval_br_sim`` (ssim) with both heads (rows equal,
+    A, B and C launched once an exit and a batch), the evaluators' images/s
+    over pre-loaded batches, and one epoch of ``main_bradeepv3 -t
+    mobilenet`` at batch 16 (one sort and one unsort a step).  Returns the
+    kernels' launches on the eval paths and the images/s."""
+    from ee_semantic_segmentation_tpu_torch.cli import eval_br_ent, eval_br_sim, eval_miou
+    from ee_semantic_segmentation_tpu_torch.cli import main_bradeepv3
+    from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
+    from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+    from ee_semantic_segmentation_tpu_torch.ee.batch_eval import (
+        br_evaluator_entropy_fused,
+        br_evaluator_similarity_fused,
+        make_kernel_miou_step_fn,
+        mIoU_evaluator_fused,
+    )
+    from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
+    from ee_semantic_segmentation_tpu_torch.train.checkpoint import load_config, save_checkpoint
+
+    n_img, bs, tau = 16, 12, 0.5
+    torch.manual_seed(0)
+    model = build_branchy_deeplabv3(n=2, img_dim=512, backbone="mobilenet_v3_large")
+    cfg = model.config
+    table = model.flops_table()
+    print(f"[mnv3-path] build_branchy_deeplabv3(n=2, img_dim=512, backbone='mobilenet_v3_large'): "
+          f"segment_ends {cfg.segment_ends}, branch_channels {cfg.branch_channels}, "
+          f"{cfg.n_exits} exits; FLOPs table {json.dumps(table)}")
+    check(cfg.segment_ends == (11,) and cfg.branch_channels == (112,),
+          f"MobileNetV3 placement {cfg.segment_ends}, {cfg.branch_channels} != (11,), (112,)")
+    E = cfg.n_exits
+    launches, ips = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = save_checkpoint(tmp, "mnv3", model, cfg)
+        del model
+        args = ["-M", ckpt, "-c", str(C), "-D", "512", "512", "-d", "synthetic", "-b", str(bs)]
+        os.chdir(tmp)
+        try:
+            for key, kernel, cli, extra in (
+                ("miou", U.upsample_argmax_confusion, eval_miou, []),
+                ("ent", U.upsample_entropy_argmax, eval_br_ent, ["-t", str(tau)]),
+                ("sim_ssim", U.upsample_argmax, eval_br_sim, ["-m", "ssim", "-t", str(tau)]),
+            ):
+                rows = {}
+                for head in ("kernel", "plain"):
+                    for k in U.KERNELS:
+                        k.launches = 0
+                    t0 = time.perf_counter()
+                    cli.main(args + extra + ["-s", f"mnv3_{key}_{head}"]
+                             + (["--pallas_head"] if head == "kernel" else []))
+                    torch.cuda.synchronize()
+                    counts = {k.__name__: k.launches for k in U.KERNELS}
+                    print(f"[mnv3-path] {cli.__name__.rsplit('.', 1)[1]} {head} head: "
+                          f"{time.perf_counter() - t0:.2f} s wall (load + data + eval), "
+                          f"launches {counts}")
+                    want = {k.__name__: E * 2 if head == "kernel" and k is kernel else 0
+                            for k in U.KERNELS}  # an exit a batch, 2 batches
+                    check(counts == want, f"mnv3 {key} {head} head launched {counts}, want {want}")
+                    if head == "kernel":
+                        launches[kernel.__name__] = kernel.launches
+                    (rows[head],) = read_csv(f"mnv3_{key}_{head}.csv")
+                print(f"[mnv3-path] {key} kernel head row {dict(rows['kernel'])}")
+                check_same_row(f"mnv3 {key}, kernel head vs plain head:", rows["kernel"],
+                               rows["plain"])
+                if key != "miou":
+                    exits = sum(int(v) for c, v in rows["kernel"].items()
+                                if c.endswith("count") or c == "count_out")
+                    check(exits == n_img == int(rows["kernel"]["out_gl"]),
+                          f"mnv3 {key}: exit counts sum to {exits}, want {n_img}")
+
+            model = load_model(ckpt, torch.device("cuda"))
+            batches = list(DataLoader(resolve_test_set("synthetic", 512), bs))
+            runs = {
+                "eval_miou kernel head": lambda: mIoU_evaluator_fused(
+                    model, E, C, batches, step=make_kernel_miou_step_fn(model, C)),
+                "eval_miou plain head": lambda: mIoU_evaluator_fused(model, E, C, batches),
+                "eval_br_ent kernel head": lambda: br_evaluator_entropy_fused(
+                    model, E, C, batches, tau, pallas_head=True),
+                "eval_br_ent plain head": lambda: br_evaluator_entropy_fused(
+                    model, E, C, batches, tau),
+                "eval_br_sim kernel head": lambda: br_evaluator_similarity_fused(
+                    model, E, C, batches, "ssim", tau, ignore=(C - 1,), pallas_head=True),
+                "eval_br_sim plain head": lambda: br_evaluator_similarity_fused(
+                    model, E, C, batches, "ssim", tau, ignore=(C - 1,)),
+            }
+            for name, fn in runs.items():
+                fn()  # warm-up (cuDNN algorithm choice, allocator)
+                passes = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    passes.append(time.perf_counter() - t0)
+                ips[f"mnv3 {name}"] = n_img / statistics.median(passes)
+                print(f"[mnv3-path] {name}: {ips[f'mnv3 {name}']:.2f} images/s ({n_img} images "
+                      f"at 512x512, batch {bs}, evaluator over pre-loaded batches, median of 3 "
+                      f"passes {[round(p * 1e3, 2) for p in passes]} ms)")
+            del model
+            torch.cuda.empty_cache()
+
+            for k in U.KERNELS + S.KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            ckpt = main_bradeepv3.main(["-t", "mobilenet", "-n", "2", "-D", "512", "-b", "16",
+                                        "-e", "1", "-d", "synthetic", "-l", "0.01", "-N",
+                                        "mnv3_train"])
+            torch.cuda.synchronize()
+            counts = {k.__name__: k.launches for k in U.KERNELS + S.KERNELS}
+            trained = load_config(ckpt)
+            (tr,) = read_csv(os.path.join(tmp, "synthetic_results", "mnv3_train",
+                                          "mnv3_train_tr.csv"))
+            print(f"[mnv3-path] main_bradeepv3 -t mobilenet -n 2 -b 16: "
+                  f"{time.perf_counter() - t0:.2f} s wall (build + 1 epoch + validation + test), "
+                  f"{trained.n_exits} exits (segment_ends {trained.segment_ends}), launches "
+                  f"{counts}, epoch loss {tr['train_loss']}")
+            check(trained.backbone == "mobilenet_v3_large" and trained.n_exits == 3,
+                  f"-t mobilenet trained {trained}")
+            check(math.isfinite(float(tr["train_loss"])), f"-t mobilenet epoch loss {tr}")
+            want = {k.__name__: 4 if k in S.KERNELS else 0 for k in U.KERNELS + S.KERNELS}
+            check(counts == want, f"-t mobilenet launched {counts}, want {want} (4 steps)")
+        finally:
+            os.chdir(cwd)
+    return launches, ips
+
+
+def serving_path(torch, ckpt, tau):
+    """Phase 4e: ``BatchedEarlyExitServer`` on the flagship at micro-batch
+    12 and phase 4c's split tau, over 48 pre-loaded images (the 16 test
+    images three times, so tau keeps its margin from every entropy): exits
+    equal the masked engine's plain head on the same micro-batches and
+    maps agree on TOL_MAP_AGREE of the pixels; ``stats()`` and images/s
+    (median of 3 passes after a warm-up)."""
+    import numpy as np
+
+    from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
+    from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+    from ee_semantic_segmentation_tpu_torch.ee.masked import make_masked_gated_apply
+    from ee_semantic_segmentation_tpu_torch.ee.serving import BatchedEarlyExitServer
+
+    bs = 12
+    model = load_model(ckpt, torch.device("cuda"))
+    test = [b["image"][:b["count"]] for b in DataLoader(resolve_test_set("synthetic", 512), 16)]
+    images = torch.from_numpy(np.concatenate(test * 3)).cuda()
+    check(images.shape[0] == 48, f"serving wants 48 images, got {images.shape[0]}")
+    plain = make_masked_gated_apply(model, tau=tau, n_classes=C)
+    want_maps, want_exits = (torch.cat(t) for t in zip(*(plain(x) for x in images.split(bs))))
+    results, passes, stats = None, [], None
+    for i in range(4):  # a warm-up pass, then 3 timed
+        server = BatchedEarlyExitServer(model, tau=tau, batch_size=bs, n_classes=C)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uids = server.submit(images)
+        results = server.flush()
+        torch.cuda.synchronize()
+        if i:
+            passes.append(time.perf_counter() - t0)
+        stats = server.stats()
+    exits = [results[u]["n"] for u in uids]
+    maps = torch.from_numpy(np.stack([results[u]["label_map"] for u in uids]))
+    agree = float((maps == want_maps.cpu()).float().mean())
+    ips = 48 / statistics.median(passes)
+    print(f"[serving] BatchedEarlyExitServer, flagship, micro-batch {bs}, tau {tau!r}: 48 images "
+          f"at 512x512 in {ips:.2f} images/s (passes {[round(p * 1e3, 2) for p in passes]} ms); "
+          f"exits {[exits.count(e) for e in (1, 2, 3)]} (masked plain head "
+          f"{[want_exits.tolist().count(e) for e in (1, 2, 3)]}); maps agree {agree:.7f} "
+          f"({int((maps != want_maps.cpu()).sum())} differing pixels); stats {json.dumps(stats)}")
+    check(exits == want_exits.tolist(), "server exits != the masked engine's plain head")
+    check(agree >= TOL_MAP_AGREE, f"server maps agree on {agree:.7f} < {TOL_MAP_AGREE}")
+    check(len(set(exits)) > 1, f"the split tau did not split the served images: {exits}")
+    return {"serving images/s": ips}, stats
+
+
+TOL_EXPORT_REL = 1e-5  # exported eval forward vs the live model (TF32 off), of the largest logit
+
+
+def export_path(U, torch, ckpt, tau):
+    """Phase 4f: ``export_gated(batch_size=12, pallas_head=True)`` of the
+    flagship at phase 4c's split tau, saved, loaded and run on the two
+    test micro-batches: labels and exits equal the eager masked kernel
+    head's, B and C launched as the exits imply; then
+    ``export_eval_forward(batch_size=12)``: logits within TOL_EXPORT_REL of
+    the live model with TF32 off.  Returns the exported engine's launches
+    and images/s."""
+    from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
+    from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+    from ee_semantic_segmentation_tpu_torch.ee.aot import (
+        export_eval_forward,
+        export_gated,
+        load_exported,
+        manifest_for,
+        save_exported,
+    )
+    from ee_semantic_segmentation_tpu_torch.ee.masked import make_masked_gated_apply
+
+    bs, n = 12, 2
+    model = load_model(ckpt, torch.device("cuda"))
+    xs = [torch.from_numpy(b["image"]).cuda()
+          for b in DataLoader(resolve_test_set("synthetic", 512), bs)]
+    ips = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = save_exported(export_gated(model, bs, tau=tau, n_classes=C, pallas_head=True),
+                             os.path.join(tmp, "gated"), {"head": "gated"})
+        program = load_exported(path).module()
+        man = manifest_for(path)
+        print(f"[export] export_gated(batch_size={bs}, pallas_head=True), tau {tau!r}: exported, "
+              f"saved and loaded in {time.perf_counter() - t0:.2f} s; {man['bytes']} bytes, "
+              f"device {man['device']}, in {man['in_avals']}, out {man['out_avals']}")
+        live = make_masked_gated_apply(model, tau=tau, n_classes=C, pallas_head=True)
+        want = [live(x) for x in xs]
+        for k in U.KERNELS:
+            k.launches = 0
+        with torch.no_grad():
+            got = [program(x) for x in xs]
+        torch.cuda.synchronize()
+        counts = (U.upsample_entropy_argmax.launches, U.upsample_argmax.launches)
+        implied = tuple(map(sum, zip(*(implied_launches(e.tolist(), n) for _, e in want))))
+        print(f"[export] exported engine on 2 micro-batches: exits "
+              f"{[e.tolist() for _, e in got]}; B, C launched {counts}, the exits imply {implied}")
+        for (gl, ge), (wl, we) in zip(got, want):
+            check(torch.equal(ge, we) and torch.equal(gl, wl),
+                  "the exported gated engine differs from the eager masked kernel head")
+        check(counts == implied, f"exported engine: B, C launched {counts}, want {implied}")
+        check(U.upsample_argmax_confusion.launches == 0, "the exported engine launched A")
+        launches = {"exported " + k.__name__: k.launches for k in U.KERNELS[1:]}
+        with torch.no_grad():
+            program(xs[0])
+            passes = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for x in xs:
+                    program(x)
+                torch.cuda.synchronize()
+                passes.append(time.perf_counter() - t0)
+        ips["exported gated kernel head images/s"] = 16 / statistics.median(passes)
+        print(f"[export] exported gated kernel head: "
+              f"{ips['exported gated kernel head images/s']:.2f} images/s (16 images at 512x512 "
+              f"in micro-batches of {bs}, passes {[round(p * 1e3, 2) for p in passes]} ms)")
+        del program
+
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            t0 = time.perf_counter()
+            path = save_exported(export_eval_forward(model, bs), os.path.join(tmp, "fwd"),
+                                 {"head": "logits"})
+            program = load_exported(path).module()
+            with torch.no_grad():
+                got, want = program(xs[0]), model(xs[0])
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"[export] export_eval_forward(batch_size={bs}) in "
+                  f"{time.perf_counter() - t0:.2f} s: logits {tuple(got.shape)} max|d| {err:.3g} "
+                  f"of max|logit| {scale:.3g} (TF32 off)")
+            check(err <= TOL_EXPORT_REL * scale,
+                  f"exported eval forward: max|d| {err} > {TOL_EXPORT_REL} x {scale}")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+    del model
+    torch.cuda.empty_cache()
+    return launches, ips
 
 
 KERNEL_INFO = (
@@ -1536,7 +1832,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = flagship_checkpoint(tmp, torch)
         launches, ips, eval_in_step = main_path(U, torch, tmp, ckpt)
-        ee_launches, ee_ips, ee_in_batch = ee_path(U, torch, ckpt)
+        ee_launches, ee_ips, ee_in_batch, tau_split = ee_path(U, torch, ckpt)
+        # --------------------------------------------------------- phases 4e, 4f
+        serving_ips, serving_stats = serving_path(torch, ckpt, tau_split)
+        export_launches, export_ips = export_path(U, torch, ckpt, tau_split)
+
+    # --------------------------------------------------------------- phase 4d
+    mnv3_launches, mnv3_ips = mobilenet_path(U, S, torch)
 
     # --------------------------------------------------------------- phase 4b
     launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
@@ -1556,8 +1858,20 @@ def main() -> int:
             "library_ms": m["library_ms"], "in_step_ms": eval_in_step[key],
             **({"ms_trained_law": m["ms_trained"]} if "ms_trained" in m else {}),
             **({"masked_path_launches": ee_launches[name],
-                "masked_in_batch_ms": {label: v[key] for label, v in ee_in_batch.items()}}
+                "masked_in_batch_ms": {label: v[key] for label, v in ee_in_batch.items()},
+                "exported_engine_launches": export_launches["exported " + name]}
                if name in ee_launches else {}),
+        })
+    for key, name, replaces in KERNEL_INFO:
+        m = measured[key, MNV3_SHAPE]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{PKG}/ops/kernels/csrc/upsample_heads.cu",
+            "replaces": replaces, "launches": mnv3_launches[name],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"], "kernel_ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shape": MNV3_SHAPE,
+            "path": "eval_mIoU / eval_br_ent / eval_br_sim --pallas_head, 2-exit MobileNetV3",
         })
     for name, by_shape in sort_measured.items():
         m = by_shape[SORT_MAIN_SHAPE]  # the -P row shape, beside the default's
@@ -1603,6 +1917,8 @@ def main() -> int:
         })
     print(json.dumps({"kernels": kernels, "card": card.splitlines()[0], "eval_images_per_s": ips,
                       "ee_images_per_s": ee_ips, "ee_masked_batch_profile": ee_in_batch,
+                      "mnv3_images_per_s": mnv3_ips, "serving_images_per_s": serving_ips,
+                      "serving_stats": serving_stats, "export_images_per_s": export_ips,
                       "train_images_per_s": train_ips,
                       "loss_kernel_share_of_train_step": kernel_share}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

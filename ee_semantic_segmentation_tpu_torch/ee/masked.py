@@ -22,11 +22,16 @@ kernel C (``upsample_argmax``), so no upsampled logits exist.  A pooled or
 similarity gate runs the plain head, as in the JAX package; the returned
 function's ``kernel_head`` says which head it runs.
 
+``GatedForward`` is the same forward for ``torch.export`` (``ee/aot.py``):
+each stage under ``torch.cond`` on ``alive.any()``, no host read.
+
 The JAX package's ``mesh``/``shard_map`` variants are not ported (multi-GPU
 is a ROADMAP.md item).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -69,71 +74,165 @@ def make_masked_gated_apply(
                              sim_ignore=sim_ignore)
 
 
-def _gated_forward_fn(model, *, tau, n_classes=21, skip=0, pool="none", pool_size=1,
-                      pallas_head=False, metric="ent", sim_ignore=()):
-    n = model.config.n_branches
-    metric = metric.lower()
-    entropy_gate = metric in ("ent", "max", "min")
-    if metric in ("max", "min") and pool == "none":
-        pool, metric = metric, "ent"
-    use_kernel = pallas_head and pool == "none" and entropy_gate
-    sim_ignore = tuple(sim_ignore)
-    model.eval()
+class _Carry(NamedTuple):
+    """A micro-batch's state between stages: which rows are alive, the
+    chosen label maps and 1-based exits, and for the similarity gate each
+    row's previous exit map and whether it has one."""
 
-    def branch_labels(k, f, out_hw, ref_map):
+    alive: torch.Tensor
+    labels: torch.Tensor
+    exit_idx: torch.Tensor
+    ref_map: torch.Tensor
+    has_ref: torch.Tensor
+
+
+class _GatePolicy:
+    """The gated forward's heads and exit decisions, shared by the eager
+    engine (``_gated_forward_fn``) and the exportable one
+    (``GatedForward``)."""
+
+    def __init__(self, model, *, tau, n_classes=21, skip=0, pool="none", pool_size=1,
+                 pallas_head=False, metric="ent", sim_ignore=()):
+        metric = metric.lower()
+        self.entropy_gate = metric in ("ent", "max", "min")
+        if metric in ("max", "min") and pool == "none":
+            pool, metric = metric, "ent"
+        self.model, self.tau, self.n_classes, self.skip = model, tau, n_classes, skip
+        self.pool, self.pool_size, self.metric = pool, pool_size, metric
+        self.use_kernel = pallas_head and pool == "none" and self.entropy_gate
+        self.sim_ignore = tuple(sim_ignore)
+        self.n = model.config.n_branches
+
+    def branch_labels(self, k, f, out_hw, ref_map):
         """Gated branch k on features f -> (label map, gate value), (N, H, W)
         int32 and (N,) float32."""
-        if use_kernel:
+        model = self.model
+        if self.use_kernel:
             return upsample_entropy_argmax(model._nhwc(model.branches[k](f)), out_hw)
         logits = model.run_branch(k, f, out_hw)
         lab = logits.argmax(dim=-1).int()
-        if entropy_gate:
+        if self.entropy_gate:
             probs = torch.softmax(logits.float(), dim=-1)
-            return lab, norm_entropy(probs, n_classes, pool, pool_size)
-        return lab, similarity(ref_map, lab, metric, n_classes, sim_ignore).float()
+            return lab, norm_entropy(probs, self.n_classes, self.pool, self.pool_size)
+        return lab, similarity(ref_map, lab, self.metric, self.n_classes,
+                               self.sim_ignore).float()
 
-    def final_labels(f, out_hw):
-        if use_kernel:
-            return upsample_argmax(model._nhwc(model.classifier(f)), out_hw)
-        return model.run_classifier(f, out_hw).argmax(dim=-1).int()
+    def final_labels(self, f, out_hw):
+        if self.use_kernel:
+            return upsample_argmax(self.model._nhwc(self.model.classifier(f)), out_hw)
+        return self.model.run_classifier(f, out_hw).argmax(dim=-1).int()
+
+    def start(self, x) -> _Carry:
+        """The carry of a micro-batch x (N, H, W, 3) before its first stage."""
+        N, H, W = x.shape[:3]
+        dev = x.device
+        return _Carry(torch.ones((N,), dtype=torch.bool, device=dev),
+                      torch.zeros((N, H, W), dtype=torch.int32, device=dev),
+                      torch.full((N,), self.n + 1, dtype=torch.int32, device=dev),
+                      torch.zeros((N, H, W), dtype=torch.int32, device=dev),
+                      torch.zeros((N,), dtype=torch.bool, device=dev))
+
+    def decide(self, k, lab_k, gate_k, carry: _Carry) -> _Carry:
+        """The exit decisions after gated branch k (k >= skip)."""
+        alive, labels, exit_idx, ref_map, has_ref = carry
+        if self.entropy_gate:
+            fired = alive & (gate_k < self.tau)
+        else:
+            cmp = gate_k > self.tau if self.metric in SIM_GREATER else gate_k < self.tau
+            # the first evaluated branch only seeds the reference map
+            fired = alive & has_ref & cmp
+            upd = alive & ~fired
+            ref_map = torch.where(upd[:, None, None], lab_k, ref_map)
+            has_ref = has_ref | upd
+        labels = torch.where(fired[:, None, None], lab_k, labels)
+        exit_idx = torch.where(fired, k + 1, exit_idx)
+        return _Carry(alive & ~fired, labels, exit_idx, ref_map, has_ref)
+
+    def finish(self, final_labels, carry: _Carry):
+        """(labels, exit_idx) once the final head's maps are in: rows still
+        alive take them."""
+        return torch.where(carry.alive[:, None, None], final_labels, carry.labels), carry.exit_idx
+
+
+def _gated_forward_fn(model, **kw):
+    policy = _GatePolicy(model, **kw)
+    n, skip = policy.n, policy.skip
+    model.eval()
 
     @torch.inference_mode()
     def gated_forward(x):
-        N, H, W = x.shape[:3]
-        out_hw = (H, W)
-        dev = x.device
-        alive = torch.ones((N,), dtype=torch.bool, device=dev)
-        labels = torch.zeros((N, H, W), dtype=torch.int32, device=dev)
-        exit_idx = torch.full((N,), n + 1, dtype=torch.int32, device=dev)
-        # similarity gate carry: previous exit's label map per row
-        ref_map = torch.zeros((N, H, W), dtype=torch.int32, device=dev)
-        has_ref = torch.zeros((N,), dtype=torch.bool, device=dev)
-
+        out_hw = tuple(x.shape[1:3])
+        carry = policy.start(x)
         feats = x.permute(0, 3, 1, 2)  # NCHW once; the segments take NCHW features
         for k in range(n + 1):
-            if not alive.any():  # one host read a stage; alive only falls
-                break
+            if not carry.alive.any():  # one host read a stage; alive only falls
+                return carry.labels, carry.exit_idx
             feats = model.run_segment(k, feats)
             if k == n:
-                labels = torch.where(alive[:, None, None], final_labels(feats, out_hw), labels)
-            elif k >= skip:
-                lab_k, gate_k = branch_labels(k, feats, out_hw, ref_map)
-                if entropy_gate:
-                    fired = alive & (gate_k < tau)
-                else:
-                    cmp = gate_k > tau if metric in SIM_GREATER else gate_k < tau
-                    # the first evaluated branch only seeds the reference map
-                    fired = alive & has_ref & cmp
-                    upd = alive & ~fired
-                    ref_map = torch.where(upd[:, None, None], lab_k, ref_map)
-                    has_ref = has_ref | upd
-                labels = torch.where(fired[:, None, None], lab_k, labels)
-                exit_idx = torch.where(fired, k + 1, exit_idx)
-                alive = alive & ~fired
-        return labels, exit_idx
+                return policy.finish(policy.final_labels(feats, out_hw), carry)
+            if k >= skip:
+                carry = policy.decide(
+                    k, *policy.branch_labels(k, feats, out_hw, carry.ref_map), carry)
 
-    gated_forward.kernel_head = use_kernel
+    gated_forward.kernel_head = policy.use_kernel
     return gated_forward
+
+
+class GatedForward(torch.nn.Module):
+    """The gated forward of ``make_masked_gated_apply`` as a module that
+    ``torch.export`` can trace (``ee/aot.export_gated``): the same heads
+    and decisions, with each stage under ``torch.cond(alive.any(), ...)``
+    (the JAX package's ``lax.cond``) in place of the eager engine's host
+    read.  A skipped stage yields zero features of the segment's output
+    shape, computed from the backbone's geometry.  Takes the arguments of
+    :func:`make_masked_gated_apply`; ``forward(x)`` returns the same
+    ``(labels, exit_idx)``.  Its ``kernel_head`` says which head it runs."""
+
+    def __init__(self, model, **kw):
+        super().__init__()
+        self.model = model.eval()
+        self.policy = _GatePolicy(model, **kw)
+        self.kernel_head = self.policy.use_kernel
+
+    def _segment_out(self, k, H, W):
+        """(C, h, w) of segment k's output for an (H, W) image."""
+        spec, cfg = self.model.spec, self.model.config
+        end = (list(cfg.segment_ends) + [len(spec.blocks)])[k]
+        return spec.blocks[end - 1].out_shape(*spec.block_geometry(H, W)[end - 1][:2])[::-1]
+
+    def forward(self, x):
+        policy, model = self.policy, self.model
+        n, skip = policy.n, policy.skip
+        N, H, W = x.shape[:3]
+        out_hw = (H, W)
+        carry = policy.start(x)
+        feats = x.permute(0, 3, 1, 2)
+        for k in range(n):
+            # both branches give channels-last features (an NHWC image
+            # permuted to NCHW is channels-last, and the convs keep it)
+            def stage(f, ref, k=k):
+                f2 = model.run_segment(k, f).contiguous(memory_format=torch.channels_last)
+                if k < skip:
+                    return (f2, torch.zeros((N, H, W), dtype=torch.int32, device=f.device),
+                            torch.full((N,), torch.inf, device=f.device))
+                return (f2, *policy.branch_labels(k, f2, out_hw, ref))
+
+            def dead(f, ref, k=k):
+                c, h, w = self._segment_out(k, H, W)
+                return (torch.zeros((N, h, w, c), dtype=f.dtype,
+                                    device=f.device).permute(0, 3, 1, 2),
+                        torch.zeros((N, H, W), dtype=torch.int32, device=f.device),
+                        torch.full((N,), torch.inf, device=f.device))
+
+            feats, lab_k, gate_k = torch.cond(carry.alive.any(), stage, dead,
+                                              (feats, carry.ref_map))
+            if k >= skip:
+                carry = policy.decide(k, lab_k, gate_k, carry)
+
+        lab_last = torch.cond(
+            carry.alive.any(), lambda f: policy.final_labels(model.run_segment(n, f), out_hw),
+            lambda f: torch.zeros((N, H, W), dtype=torch.int32, device=f.device), (feats,))
+        return policy.finish(lab_last, carry)
 
 
 def make_masked_gated_scan(model, **kw):

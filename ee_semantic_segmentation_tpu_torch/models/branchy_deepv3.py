@@ -29,6 +29,7 @@ from torch import nn
 import torch.nn.functional as Fn
 
 from ee_semantic_segmentation_tpu_torch.models import aspp as heads
+from ee_semantic_segmentation_tpu_torch.models import mobilenetv3 as M
 from ee_semantic_segmentation_tpu_torch.models import resnet as R
 
 
@@ -64,9 +65,7 @@ class BranchyConfig:
 def backbone_spec(cfg: "BranchyConfig"):
     """Resolve the static backbone description for a config."""
     if cfg.backbone == "mobilenet_v3_large":
-        raise NotImplementedError(
-            "the mobilenet_v3_large backbone is not ported yet "
-            "(ROADMAP.md queue A: models/mobilenetv3.py)")
+        return M.mobilenet_v3_block_specs()
     return R.resnet_block_specs(cfg.backbone_depth)
 
 
@@ -146,7 +145,7 @@ def _init_like_flax(module: nn.Module) -> None:
 
 
 class BranchyDeepLabV3(nn.Module):
-    """Multi-exit DeepLabV3 with a dilated ResNet trunk."""
+    """Multi-exit DeepLabV3 with a dilated ResNet or MobileNetV3-Large trunk."""
 
     def __init__(self, config: BranchyConfig):
         super().__init__()
@@ -154,8 +153,12 @@ class BranchyDeepLabV3(nn.Module):
         self.config = cfg
         spec = backbone_spec(cfg)
         self.spec = spec
-        self.stem = R.ResNetStem()
-        self.blocks = nn.ModuleList(R.Bottleneck(blk) for blk in spec.blocks)
+        if cfg.backbone == "mobilenet_v3_large":
+            stem_cls, block_cls = M.MNV3Stem, M.InvertedResidual
+        else:
+            stem_cls, block_cls = R.ResNetStem, R.Bottleneck
+        self.stem = stem_cls()
+        self.blocks = nn.ModuleList(block_cls(blk) for blk in spec.blocks)
         bp = cfg.branch_params
         branch_list = []
         for k in range(cfg.n_branches):

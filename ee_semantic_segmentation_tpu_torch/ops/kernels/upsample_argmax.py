@@ -15,14 +15,19 @@ float32 tensor never exists:
 * ``upsample_argmax`` -> the (N, H, W) argmax map alone, for the
   similarity gates (kernel C).
 
-Dispatch is by the tensor's device and nothing else: a CPU tensor takes the
-plain version (``*_plain``), a CUDA tensor launches the kernel or raises.
+Each wrapper calls a PyTorch custom operator (``ee_seg::<wrapper name>``),
+so ``torch.export`` can trace a caller through it.  Dispatch is by the
+tensor's device and nothing else: on a CPU tensor the operator runs the
+plain version (``*_plain``), on a CUDA tensor it launches the kernel or
+raises.
 The plain versions run the separable weight-matrix product in float32 (the
 math of the JAX package's ``_confusion_tiled_xla``), then argmax, then the
 bincount confusion or the softmax entropy of ``ops/gating.py``; the tests
 and ``chip_smoke.py`` hold the kernels against them.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``: the operator's
+CUDA implementation adds one where it launches, also when an exported
+program calls it.
 """
 
 from __future__ import annotations
@@ -109,8 +114,6 @@ def upsample_argmax_plain(logits, out_hw):
 
 
 def _check_logits(logits: torch.Tensor, out_hw) -> tuple[int, ...]:
-    if logits.device.type != "cuda":
-        raise ValueError(f"logits on {logits.device}: the kernels take CUDA tensors")
     if logits.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"logits must be float32 or bfloat16, got {logits.dtype}")
     if logits.ndim != 4 or not logits.is_contiguous():
@@ -121,6 +124,14 @@ def _check_logits(logits: torch.Tensor, out_hw) -> tuple[int, ...]:
     if H < h or W < w:
         raise ValueError(f"upsampling only: ({h}, {w}) -> ({H}, {W})")
     return N, h, w, C, H, W
+
+
+def _check_device(logits: torch.Tensor) -> None:
+    """The operators run on CPU tensors (plain versions) and CUDA tensors
+    (kernels); any other device would reach only their fake versions."""
+    if logits.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"logits on {logits.device}: the kernels take CUDA tensors "
+                         "(CPU tensors take the plain versions)")
 
 
 def _launch_args(logits, H, W):
@@ -149,10 +160,56 @@ def upsample_argmax_confusion(logits: torch.Tensor, labels: torch.Tensor,
     summed TP/FP/FN of ``argmax(bilinear_upsample(logits))`` against the
     labels over rows ``n < count``.  Labels outside ``[0, C)`` are void:
     FP for the predicted class, nothing else.  Kernel A."""
+    _check_device(logits)
     count = max(0, min(int(count), logits.shape[0]))
-    if logits.device.type == "cpu":
-        return upsample_argmax_confusion_plain(logits, labels, count, out_hw)
-    N, h, w, C, H, W = _check_logits(logits, out_hw)
+    H, W = (int(d) for d in out_hw)
+    return torch.ops.ee_seg.upsample_argmax_confusion(logits, labels, count, H, W)
+
+
+def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
+    """(N, h, w, C) logits -> ((N, H, W) int32 argmax of the bilinear
+    upsample, (N,) float32 mean over pixels of the softmax entropy / log C).
+    Kernel B."""
+    C = logits.shape[-1]
+    if C < 2:
+        raise ValueError(
+            f"normalized entropy needs n_classes >= 2 (base-C log), got C={C}")
+    _check_device(logits)
+    H, W = (int(d) for d in out_hw)
+    return torch.ops.ee_seg.upsample_entropy_argmax(logits, H, W)
+
+
+def upsample_argmax(logits: torch.Tensor, out_hw) -> torch.Tensor:
+    """(N, h, w, C) logits -> (N, H, W) int32 argmax of the bilinear
+    upsample.  Kernel C.  With ``(H, W) == (h, w)`` there is nothing to
+    upsample and the result is the argmax itself, as in the JAX package.
+    On the card a ``ValueError`` where no band fits shared memory (above
+    ~9,700 classes)."""
+    if tuple(int(d) for d in out_hw) == tuple(logits.shape[1:3]):
+        return logits.argmax(dim=-1).int()
+    _check_device(logits)
+    H, W = (int(d) for d in out_hw)
+    return torch.ops.ee_seg.upsample_argmax(logits, H, W)
+
+
+# ------------------------------------------------------------ custom operators
+# Each kernel is the PyTorch custom operator ``ee_seg::<wrapper name>``.  Its
+# CPU implementation is the plain version, its CUDA one launches the kernel
+# or raises, and its fake one gives the output shapes and types, so that
+# ``torch.export`` traces a caller through it (``ee/aot.py``) and the
+# exported program calls the operator.  A process that loads such a program
+# imports this module first, which registers the operators.
+
+@torch.library.custom_op(
+    "ee_seg::upsample_argmax_confusion", mutates_args=(), device_types="cpu",
+    schema="(Tensor logits, Tensor labels, int count, int H, int W) -> Tensor")
+def _confusion_op(logits, labels, count, H, W):
+    return upsample_argmax_confusion_plain(logits, labels, count, (H, W))
+
+
+@_confusion_op.register_kernel("cuda")
+def _confusion_cuda(logits, labels, count, H, W):
+    N, h, w, C, H, W = _check_logits(logits, (H, W))
     if labels.device != logits.device or labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32 on {logits.device}, got "
                         f"{labels.dtype} on {labels.device}")
@@ -173,17 +230,21 @@ def upsample_argmax_confusion(logits: torch.Tensor, labels: torch.Tensor,
     return counts.float()
 
 
-def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
-    """(N, h, w, C) logits -> ((N, H, W) int32 argmax of the bilinear
-    upsample, (N,) float32 mean over pixels of the softmax entropy / log C).
-    Kernel B."""
-    C = logits.shape[-1]
-    if C < 2:
-        raise ValueError(
-            f"normalized entropy needs n_classes >= 2 (base-C log), got C={C}")
-    if logits.device.type == "cpu":
-        return upsample_entropy_argmax_plain(logits, out_hw)
-    N, h, w, C, H, W = _check_logits(logits, out_hw)
+@_confusion_op.register_fake
+def _confusion_fake(logits, labels, count, H, W):
+    return logits.new_empty((3, logits.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "ee_seg::upsample_entropy_argmax", mutates_args=(), device_types="cpu",
+    schema="(Tensor logits, int H, int W) -> (Tensor, Tensor)")
+def _entropy_op(logits, H, W):
+    return upsample_entropy_argmax_plain(logits, (H, W))
+
+
+@_entropy_op.register_kernel("cuda")
+def _entropy_cuda(logits, H, W):
+    N, h, w, C, H, W = _check_logits(logits, (H, W))
     lib = _build.load_library()
     tiles = _band_tiles(lib, "upsample_entropy_argmax", h, w, C, H, W)  # an entropy partial a block
     labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
@@ -200,17 +261,23 @@ def upsample_entropy_argmax(logits: torch.Tensor, out_hw):
     return labels, ent
 
 
-def upsample_argmax(logits: torch.Tensor, out_hw) -> torch.Tensor:
-    """(N, h, w, C) logits -> (N, H, W) int32 argmax of the bilinear
-    upsample.  Kernel C.  With ``(H, W) == (h, w)`` there is nothing to
-    upsample and the result is the argmax itself, as in the JAX package.
-    On the card a ``ValueError`` where no band fits shared memory (above
-    ~9,700 classes)."""
-    if tuple(int(d) for d in out_hw) == tuple(logits.shape[1:3]):
-        return logits.argmax(dim=-1).int()
-    if logits.device.type == "cpu":
-        return upsample_argmax_plain(logits, out_hw)
-    N, h, w, C, H, W = _check_logits(logits, out_hw)
+@_entropy_op.register_fake
+def _entropy_fake(logits, H, W):
+    N = logits.shape[0]
+    return (logits.new_empty((N, H, W), dtype=torch.int32),
+            logits.new_empty((N,), dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "ee_seg::upsample_argmax", mutates_args=(), device_types="cpu",
+    schema="(Tensor logits, int H, int W) -> Tensor")
+def _argmax_op(logits, H, W):
+    return upsample_argmax_plain(logits, (H, W))
+
+
+@_argmax_op.register_kernel("cuda")
+def _argmax_cuda(logits, H, W):
+    N, h, w, C, H, W = _check_logits(logits, (H, W))
     lib = _build.load_library()
     _band_tiles(lib, "upsample_argmax", h, w, C, H, W)
     labels = torch.empty((N, H, W), dtype=torch.int32, device=logits.device)
@@ -223,6 +290,11 @@ def upsample_argmax(logits: torch.Tensor, out_hw) -> torch.Tensor:
     _build.check(err, "upsample_argmax")
     upsample_argmax.launches += 1
     return labels
+
+
+@_argmax_op.register_fake
+def _argmax_fake(logits, H, W):
+    return logits.new_empty((logits.shape[0], H, W), dtype=torch.int32)
 
 
 upsample_argmax_confusion.launches = 0

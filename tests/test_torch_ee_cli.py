@@ -12,6 +12,7 @@ the widest gap of the first gated exit's gate values on the test split.
 """
 
 import csv
+import shutil
 
 import numpy as np
 import pytest
@@ -37,7 +38,8 @@ def _few_torch_threads():
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
     """A two-branch 21-class checkpoint at 32 px (the flagship's placement
-    rule, count_branches=False: exits after blocks 12 and 15)."""
+    rule, count_branches=False: exits after blocks 12 and 15), written once
+    for the module and removed after its last test: it is ~250 MB."""
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
     from ee_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -45,7 +47,9 @@ def ckpt(tmp_path_factory):
     model = build_branchy_deeplabv3(depth=50, n=2, img_dim=32, num_classes=21,
                                     count_branches=False)
     assert model.config.segment_ends == (12, 15)
-    return save_checkpoint(str(tmp_path_factory.mktemp("ckpt")), "tiny21", model, model.config)
+    folder = tmp_path_factory.mktemp("ckpt")
+    yield save_checkpoint(str(folder), "tiny21", model, model.config)
+    shutil.rmtree(folder)
 
 
 @pytest.fixture(scope="module")

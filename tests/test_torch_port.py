@@ -13,6 +13,7 @@ import dataclasses
 import importlib
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -129,11 +130,6 @@ def test_flagship_placement():
         m = TB.build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
     assert m.config.segment_ends == (12, 15)
     assert m.config.branch_channels == (1024, 2048)
-
-
-def test_mobilenet_backbone_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.build_branchy_deeplabv3(depth=50, n=1, img_dim=64, backbone="mobilenet_v3_large")
 
 
 # ---------------------------------------------------------------- weights
@@ -262,6 +258,16 @@ def test_entropy_evaluator_matches_jax(tiny_model, tiny_state, tiny_port, tiny_v
 
 
 # ---------------------------------------------------------------- checkpoint, data, CLI
+@pytest.fixture
+def removes_tmp_path(tmp_path):
+    """For a test that writes checkpoints into ``tmp_path``: the folder goes
+    as soon as the test is over.  A full-width checkpoint is 150-850 MB,
+    and the suite runs in several workers at once."""
+    yield
+    shutil.rmtree(tmp_path)
+
+
+@pytest.mark.usefixtures("removes_tmp_path")
 def test_checkpoint_roundtrip_and_sidecar_schema(tmp_path, tiny_port):
     from ee_semantic_segmentation_tpu.train.checkpoint import load_config as j_load_config
     from ee_semantic_segmentation_tpu_torch.train import checkpoint as TC
@@ -311,11 +317,14 @@ def test_append_csv_writes_the_jax_layout(tmp_path):
 
 @pytest.fixture(scope="module")
 def tiny_ckpt(tmp_path_factory):
+    """Written once for the module, removed after its last test (~210 MB)."""
     from ee_semantic_segmentation_tpu_torch.train.checkpoint import save_checkpoint
 
     torch.manual_seed(0)
     model = TB.build_branchy_deeplabv3(depth=50, n=1, img_dim=32, num_classes=21)
-    return save_checkpoint(str(tmp_path_factory.mktemp("ckpt")), "tiny21", model, model.config)
+    folder = tmp_path_factory.mktemp("ckpt")
+    yield save_checkpoint(str(folder), "tiny21", model, model.config)
+    shutil.rmtree(folder)
 
 
 def test_cli_asks_for_cpu_explicitly_without_cuda(tiny_ckpt):

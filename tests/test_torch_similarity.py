@@ -26,7 +26,12 @@ from ee_semantic_segmentation_tpu.ops import metrics as JM
 from ee_semantic_segmentation_tpu_torch.ops import gating as TG
 from ee_semantic_segmentation_tpu_torch.ops import metrics as TM
 from ee_semantic_segmentation_tpu_torch.ops.kernels import upsample_argmax as TU
-from test_torch_port import _assert_same_result, _perturbed_variables, _port_model
+from test_torch_port import (  # noqa: F401 (a fixture)
+    _assert_same_result,
+    _perturbed_variables,
+    _port_model,
+    removes_tmp_path,
+)
 
 JU = importlib.import_module("ee_semantic_segmentation_tpu.ops.pallas.upsample_argmax")
 METRICS = ("ssim", "mse", "nmi", "vi", "h_xy", "h_yx")
@@ -283,6 +288,7 @@ SIM_SCHEMA = ["net_id", "b1_mIoU", "b1_count", "b2_mIoU", "b2_count", "mIoU_out"
               "mIoU_gl", "out_gl", "t", "metric"]
 
 
+@pytest.mark.usefixtures("removes_tmp_path")
 def test_similarity_clis_write_the_jax_schema_on_cpu(tmp_path, monkeypatch):
     """eval_br_sim with both heads and eval_br_images, --device cpu, on a
     two-branch 21-class checkpoint: the JAX package's CSV schema (NaN

@@ -20,6 +20,7 @@ from ee_semantic_segmentation_tpu_torch.ops import branchy as TBr
 from ee_semantic_segmentation_tpu_torch.parallel.train_step import make_train_step
 from ee_semantic_segmentation_tpu_torch.train import checkpoint as TC
 from ee_semantic_segmentation_tpu_torch.train import optim as TO
+from test_torch_port import removes_tmp_path  # noqa: F401 (a fixture)
 
 VOID = 5
 TRAIN_ARGS = ["-t", "resnet50", "-n", "2", "-D", "32", "-b", "4", "-e", "1", "-d", "synthetic",
@@ -40,6 +41,7 @@ def _read_csv(path):
         return list(csv.DictReader(fh))
 
 
+@pytest.mark.usefixtures("removes_tmp_path")
 def test_checkpoint_with_optimizer_state_resumes_the_same_trajectory(tmp_path):
     """Save after one step, restore into a fresh model and optimizer: the
     next step lands where the uninterrupted run's does (dropout's RNG
@@ -87,6 +89,7 @@ def test_checkpoint_with_optimizer_state_resumes_the_same_trajectory(tmp_path):
                                             ("main_bradeepv3", ["-G", "16384"])],
                          ids=["main_bradeepv3", "main_bradeepv3_ce", "main_bradeepv3-G",
                               "main_bradeepv3-G16384"])
+@pytest.mark.usefixtures("removes_tmp_path")
 def test_training_cli_end_to_end_on_cpu(tmp_path, monkeypatch, cli_name, extra):
     """One epoch of the synthetic set at 32 px: checkpoint (.pt, .opt.pt,
     .json with the JAX package's schema), the curve CSV and the test-mIoU
