@@ -113,6 +113,20 @@ Phases, in order; any failed check raises and the script exits non-zero:
    launches counted over those steps (one call each a step), and one more
    step of each Lovász loss under ``torch.profiler``: the device time of
    the loss's kernels inside the step and their share of it;
+4g. the data-parallel path (``parallel/mesh.py``) at world 1 over NCCL,
+   launched by ``python -m torch.distributed.run --nproc_per_node=1
+   chip_smoke.py --dp-worker <plan>``: ``eval_miou``, ``eval_br_ent`` and
+   ``eval_br_sim`` with ``--pallas_head``, ``ee_dnn_op_ne --engine masked
+   --pallas_head`` and one epoch of ``main_bradeepv3`` (sorted and ``-G
+   1024``) on a flagship checkpoint: CSV rows equal to the same CLI runs in
+   one process, training epoch losses within the spread of two one-process
+   runs (a smoke check), kernel launches as each path implies, every
+   collective of each path issued; the first train step against one
+   process (in float64 its state and update, in float32 its loss), and the
+   global BatchNorm's fused CUDA branch against its plain branch; then the images/s of the
+   train step and of the kernel-head eval, one-process and data-parallel
+   in turns, and one traced step of each; with two or more GPUs the
+   same at world 2, held to world 1 (else one line says it was not run);
 5. one ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
 
 Imports nothing of JAX or of the JAX package.
@@ -869,7 +883,7 @@ def training_path(S, Hk, kernels, torch):
     """Phase 4b.  Trains the flagship through the CLIs, each run with every
     kernel's count set to 0 just before it; returns the sort's and the
     unsort's launches on the default (per-batch Lovász) run and E's and F's
-    on the -G run."""
+    on the -G run, and each run's epoch loss."""
     from ee_semantic_segmentation_tpu_torch.cli import eval_miou, main_bradeepv3, main_bradeepv3_ce
     from ee_semantic_segmentation_tpu_torch.train.checkpoint import load_config
 
@@ -879,7 +893,7 @@ def training_path(S, Hk, kernels, torch):
     runs = (("lovasz", main_bradeepv3, []), ("lovasz_per_image", main_bradeepv3, ["-P"]),
             ("hist_lovasz", main_bradeepv3, ["-G", str(HIST_BINS)]),
             ("ce", main_bradeepv3_ce, []))
-    launches = {}
+    launches, epoch_loss = {}, {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
@@ -918,6 +932,7 @@ def training_path(S, Hk, kernels, torch):
                 res = read_csv("mIoU_2_branches_results.csv")
                 check(len(res) == i + 1 and list(res[0]) == MIOU_SCHEMA,
                       f"mIoU_2_branches_results.csv: {res}")
+                epoch_loss[name] = float(tr[0]["train_loss"])
                 print(f"[train-path] {name}: epoch loss {tr[0]['train_loss']}, val "
                       f"{[tr[0][c] for c in TR_SCHEMA[1:4]]}, test row {dict(res[-1])}")
                 eval_miou.main(["-M", ckpt, "-c", str(C), "-D", "512", "512", "-d", "synthetic",
@@ -928,7 +943,7 @@ def training_path(S, Hk, kernels, torch):
         finally:
             os.chdir(cwd)
         torch.cuda.empty_cache()
-    return launches
+    return launches, epoch_loss
 
 
 # each loss kernel's CUDA kernels, by the start of their names in a trace
@@ -1762,6 +1777,488 @@ def export_path(U, torch, ckpt, tau):
     return launches, ips
 
 
+# ----------------------------------------------------------------- phase 4g
+# The sharp check of the data-parallel training path on the card is its
+# first step in float64 from the same weights on the same rows (the first
+# DP_F64_ROWS of the batch, cross-entropy, cuDNN deterministic): the
+# update of every parameter and BatchNorm running statistic (after -
+# before) within DP_F64_RTOL of the largest one-process update of that
+# entry, and the state within DP_F64_RTOL of its largest value.  It runs
+# the fused CUDA BatchNorm and the gradient all-reduce over NCCL.  In
+# float32 the same comparison cannot be sharp: a BatchNorm's bias (or
+# scale) gradient is a sum over a million pixels that cancels to a small
+# value, a BatchNorm after it removing most of it, so another summation
+# order moves it by percents (2.9e-2 of the largest in the worst entry,
+# PERF.md); and the per-batch Lovász gradient moves wherever its float32
+# errors, tied by the thousands, reorder.  The float32 first steps (TF32
+# off, cuDNN deterministic; cross-entropy and the per-batch Lovász loss)
+# are held to the one-process loss within DP_STEP1_RTOL, and their state
+# differences are printed beside those of two one-process runs.  The
+# global BatchNorm's fused CUDA branch (forward and backward, through
+# NCCL) is held to its plain branch on the same card tensors within
+# DP_BN_RTOL of each output's largest value.  tests/test_torch_dist.py
+# holds the path to the one-process step in float64 on the CPU.  The epoch
+# loss of a CLI training run against phase 4b's is a smoke check only:
+# within DP_LOSS_SPREAD times the difference between two one-process runs
+# of the same 4 steps (cuDNN's backward need not be deterministic), and
+# never held tighter than DP_LOSS_FLOOR relative, since at random init a
+# float32 rounding difference in one step grows by orders of magnitude
+# over the next ones.
+DP_LOSS_SPREAD = 3.0
+DP_LOSS_FLOOR = 5e-2
+DP_STEP1_RTOL = 1e-4
+DP_F64_RTOL = 1e-6
+DP_F64_ROWS = 4
+DP_BN_RTOL = 1e-4
+DP_BN_SHAPE = (8, 256, 64, 64)  # a flagship layer's channels, channels-last
+DP_TRAIN_RUNS = {"lovasz": [], "hist_lovasz": ["-G", str(HIST_BINS)]}
+
+
+def dp_plan(ckpt, tau, out_dir):
+    """The CLI runs of phase 4g: name -> (CLI module, argv), the same argv
+    for the one-process and the data-parallel runs."""
+    ev = ["-M", ckpt, "-c", str(C), "-D", "512", "512", "-d", "synthetic", "-b", "12",
+          "--pallas_head"]
+    runs = {
+        "eval_miou": ("eval_miou", ev + ["-s", "miou"]),
+        "eval_br_ent": ("eval_br_ent", ev + ["-t", repr(tau), "-s", "ent"]),
+        "eval_br_sim": ("eval_br_sim", ev + ["-m", "ssim", "-t", "0.5", "-s", "sim"]),
+        "ee_dnn_op_ne masked": ("ee_dnn_op_ne", [
+            "-M", ckpt, "-m", "ent", "-t", repr(tau), "-s", "512", "512", "-d", "synthetic",
+            "-n", str(C), "--engine", "masked", "-b", "12", "--pallas_head"]),
+    }
+    for name, extra in DP_TRAIN_RUNS.items():
+        runs[name] = ("main_bradeepv3", [
+            "-t", "resnet50", "-n", "2", "-D", "512", "-b", "16", "-e", "1", "-d", "synthetic",
+            "-l", "0.01", "--accum_steps", str(TRAIN_ACCUM), "-N", name] + extra)
+    return {"dir": str(out_dir), "ckpt": ckpt, "runs": runs}
+
+
+DP_CSVS = {"eval_miou": "miou.csv", "eval_br_ent": "ent.csv", "eval_br_sim": "sim.csv",
+           "ee_dnn_op_ne masked": "ee_2_ent_lw_m2_res.csv"}
+
+
+def dp_kernels():
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import hist as Hk
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import sort as S
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import upsample_argmax as U
+
+    return U.KERNELS + S.KERNELS + Hk.KERNELS
+
+
+def dp_run(torch, module, argv):
+    """One CLI run in this process with every kernel's count and every
+    collective's count set to 0 just before it: (wall s, launches,
+    collectives)."""
+    import importlib
+
+    from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+
+    cli = importlib.import_module(f"{PKG}.cli.{module}")
+    for k in dp_kernels():
+        k.launches = 0
+    pm.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.main(list(argv))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, {k.__name__: k.launches for k in dp_kernels()},
+            dict(pm.COLLECTIVES))
+
+
+def dp_bn_check(torch, mesh):
+    """The global BatchNorm's fused CUDA branch against its plain branch on
+    the same card tensors (float32, channels-last ``DP_BN_SHAPE``): y, the
+    global mean and variance, and the input, scale and shift gradients.
+    Returns {output: max|fused - plain| / max|plain|}."""
+    from ee_semantic_segmentation_tpu_torch.models.resnet import _GlobalBatchNorm
+
+    g = torch.Generator(device=mesh.device).manual_seed(3)
+    x = (torch.randn(DP_BN_SHAPE, device=mesh.device, generator=g) * 2 + 0.5).to(
+        memory_format=torch.channels_last)
+    gy = torch.randn(DP_BN_SHAPE, device=mesh.device, generator=g).to(
+        memory_format=torch.channels_last)
+    w = torch.rand(DP_BN_SHAPE[1], device=mesh.device, generator=g) + 0.5
+    b = torch.randn(DP_BN_SHAPE[1], device=mesh.device, generator=g)
+    outs = {}
+    for fused in (True, False):
+        xi, wi, bi = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        y, mean, var = _GlobalBatchNorm.apply(xi, wi, bi, 1e-5, mesh, fused)
+        y.backward(gy)
+        outs[fused] = {"y": y, "mean": mean, "var": var, "dx": xi.grad, "dscale": wi.grad,
+                       "dshift": bi.grad}
+    return {k: float((outs[True][k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            for k, v in outs[False].items()}
+
+
+def _state_errors(s0, s1, t0, t1):
+    """Worst entry of two runs' states after a step (s1 one process, t1
+    data parallel, from s0 and t0): (max over entries of max|t1 - s1| /
+    max|s1|, the same of the updates t1 - t0 against s1 - s0, the entry)."""
+    worst_state = worst_update = 0.0
+    worst_key = None
+    for k, a in s1.items():
+        b = t1[k]
+        if not a.is_floating_point():
+            check(bool((a == b).all()), f"first step: {k} {b} vs {a}")
+            continue
+        worst_state = max(worst_state, float((b - a).abs().max() / a.abs().max().clamp_min(1e-30)))
+        da, db = a - s0[k], b - t0[k]
+        scale = float(da.abs().max())
+        err = float((db - da).abs().max())
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if rel >= worst_update:
+            worst_update, worst_key = rel, k
+    return worst_state, worst_update, worst_key
+
+
+def dp_step_trace(torch, pm, step, x, y):
+    """A train step's wall ms and collectives, then one more step under the
+    profiler: device ms by kernel family (NCCL, BatchNorm, concatenation
+    and copies, the rest) and launches; None where the trace stays short."""
+    pm.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(x, y, 0.01)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    collectives = dict(pm.COLLECTIVES)
+    trace = per_kernel_ms(lambda: step(x, y, 0.01), torch)
+    if trace is None:
+        return None
+    fams = {"nccl": 0.0, "batch_norm": 0.0, "cat_copy": 0.0, "rest": 0.0}
+    for name, (_, ms) in trace.items():
+        low = name.lower()
+        fam = ("nccl" if "nccl" in low else "batch_norm" if "batch_norm" in low
+               else "cat_copy" if ("cat" in low or "copy" in low) else "rest")
+        fams[fam] += ms
+    return {"wall_ms": wall, "device_ms": sum(fams.values()),
+            "launches": sum(n for n, _ in trace.values()),
+            **{f"{k}_ms": v for k, v in fams.items()}, "collectives": collectives}
+
+
+def _flagship_step(torch, mesh, loss_kind):
+    """A freshly built flagship (weights from seed 0, replicated with a
+    mesh), its train step with loss ``loss_kind`` and the model."""
+    from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import build_branchy_deeplabv3
+    from ee_semantic_segmentation_tpu_torch.ops.branchy import LovaszSoftmax
+    from ee_semantic_segmentation_tpu_torch.ops.xentropy import BrXEntropyLoss
+    from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+    from ee_semantic_segmentation_tpu_torch.parallel.train_step import make_train_step
+    from ee_semantic_segmentation_tpu_torch.train.optim import (
+        branchy_lr_multipliers,
+        make_optimizer,
+    )
+
+    torch.manual_seed(0)
+    model = build_branchy_deeplabv3(depth=50, n=2, img_dim=512, count_branches=False)
+    model = model.to(torch.device("cuda")).to(memory_format=torch.channels_last)
+    if mesh is not None:
+        pm.replicate(model, mesh)
+    opt = make_optimizer(model, branchy_lr_multipliers(2, 0.01))
+    loss = (BrXEntropyLoss(ignore_index=C, b_reduction="sum", n_exits=3, mesh=mesh)
+            if loss_kind == "ce" else LovaszSoftmax(ignore=C, n_branches=2, mesh=mesh))
+    return make_train_step(model, loss, opt, accum_steps=TRAIN_ACCUM, mesh=mesh), model
+
+
+def dp_first_step(torch, mesh, x, y):
+    """The first train step from the same weights on the same batch, cuDNN
+    deterministic: in float64 with cross-entropy on the first
+    ``DP_F64_ROWS`` rows, and in float32 (TF32 off) with cross-entropy and
+    with the per-batch Lovász loss on the whole batch; each one process
+    twice and data-parallel once.  Returns per run its losses, and the
+    worst entry's state and update differences (:func:`_state_errors`) of
+    the second one-process run and of the data-parallel run against the
+    first one-process run."""
+    out = {}
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        for run, kind, dtype, rows in (("ce f64", "ce", torch.float64, DP_F64_ROWS),
+                                       ("ce", "ce", torch.float32, len(x)),
+                                       ("lovasz", "lovasz", torch.float32, len(x))):
+            xs, ys = x[:rows].to(dtype), y[:rows]
+            ref = None
+            for mode in ("plain", "plain again", "data-parallel"):
+                step, model = _flagship_step(torch, mesh if mode == "data-parallel" else None,
+                                             kind)
+                model.to(dtype)
+                before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                loss = float(step(xs, ys, 0.01))
+                after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+                out[f"{run} loss {mode}"] = loss
+                if ref is None:
+                    ref = (before, after)
+                else:
+                    check(all(bool((ref[0][k] == before[k]).all()) for k in before),
+                          f"{run} {mode}: the runs start from other weights")
+                    out[f"{run} {mode}"] = _state_errors(*ref, before, after)
+                del step, model, before, after
+                torch.cuda.empty_cache()
+            del ref
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+    return out
+
+
+def dp_throughput(torch, mesh, ckpt):
+    """Images/s of the flagship's train step (per-batch Lovász, batch 16)
+    and of its kernel-head eval (eval_miou's evaluator, batch 12) over
+    pre-loaded batches, the one-process path and the data-parallel one in
+    turns (plain, data-parallel, plain, data-parallel), both in this
+    process; every rank passes the global batch and runs its rows.  Also
+    the first-step checks (:func:`dp_first_step`, :func:`dp_bn_check`) and
+    one traced step of each path.  Returns (images/s, the first-step,
+    BatchNorm and trace numbers)."""
+    from ee_semantic_segmentation_tpu_torch.cli.common import load_model, resolve_test_set
+    from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+    from ee_semantic_segmentation_tpu_torch.ee.batch_eval import (
+        make_kernel_miou_step_fn,
+        mIoU_evaluator_fused,
+    )
+    from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+
+    dev = mesh.device
+    test_set = resolve_test_set("synthetic", 512)
+    (batch,) = list(DataLoader(test_set, 16))
+    x, y = (torch.from_numpy(batch[k]).to(dev) for k in ("image", "label"))
+    first = dp_first_step(torch, mesh, x, y)
+    bn = dp_bn_check(torch, mesh)
+    ims, traces = {}, {}
+    for mode in ("plain", "data-parallel") * 2:
+        step, model = _flagship_step(torch, mesh if mode == "data-parallel" else None, "lovasz")
+        step(x, y, 0.01)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            loss = step(x, y, 0.01)
+        check(math.isfinite(float(loss)), f"{mode} train step loss {float(loss)}")
+        ims.setdefault(f"train {mode}", []).append(16 * 4 / (time.perf_counter() - t0))
+        if mode not in traces:
+            traces[mode] = dp_step_trace(torch, pm, step, x, y)
+        del model, step, loss
+        torch.cuda.empty_cache()
+    model = load_model(ckpt, dev)
+    batches = list(DataLoader(test_set, 12))
+    kstep = make_kernel_miou_step_fn(model, C)
+    for mode in ("plain", "data-parallel") * 2:
+        m = mesh if mode == "data-parallel" else None
+        mIoU_evaluator_fused(model, 3, C, batches, step=kstep, mesh=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mIoU_evaluator_fused(model, 3, C, batches, step=kstep, mesh=m)
+        torch.cuda.synchronize()
+        ims.setdefault(f"eval_miou kernel head {mode}", []).append(
+            16 / (time.perf_counter() - t0))
+    return ims, {"first_step": first, "batchnorm_fused_vs_plain": bn, "trace": traces}
+
+
+def dp_worker(plan_path):
+    """One rank of phase 4g (``torch.distributed.run``): every CLI run of
+    the plan in this process, the throughput runs, and rank 0 writes the
+    report beside the plan."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from ee_semantic_segmentation_tpu_torch.ops.kernels import _build
+    from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+
+    _build.build()
+    _build.load_library()
+    plan = json.loads(plan_path.read_text())
+    os.chdir(plan["dir"])
+    report = {"runs": {}}
+    for name, (module, argv) in plan["runs"].items():
+        wall, launches, coll = dp_run(torch, module, argv)
+        report["runs"][name] = {"wall_s": wall, "launches": launches, "collectives": coll}
+    mesh = pm.make_mesh()
+    report["world"] = mesh.world
+    report["images_per_s"], report["step"] = dp_throughput(torch, mesh, plan["ckpt"])
+    if mesh.primary:
+        (plan_path.parent / f"report_{plan_path.stem}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_launch(plan, tmp, nproc, timeout):
+    """Run the plan under ``python -m torch.distributed.run`` with ``nproc``
+    ranks (NCCL, one GPU each); returns rank 0's report."""
+    path = pathlib.Path(tmp) / f"plan{nproc}.json"
+    path.write_text(json.dumps(plan))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(ROOT / "chip_smoke.py"), "--dp-worker", str(path)]
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout stops the launcher and its ranks
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        stdout, stderr = proc.communicate()
+    print(f"[dp] torch.distributed.run --nproc_per_node={nproc}: rc {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode:
+        print(stdout[-6000:])
+        print(stderr[-6000:], file=sys.stderr)
+    check(proc.returncode == 0, f"the {nproc}-rank data-parallel run failed")
+    return json.loads((path.parent / f"report_{path.stem}.json").read_text())
+
+
+def check_first_step(rep, world):
+    """Phase 4g's first-step checks on a run's report (the constants above
+    phase 4g): the fused global BatchNorm within ``DP_BN_RTOL`` of its
+    plain branch, each first step's loss within ``DP_STEP1_RTOL`` of one
+    process, and the float64 step's state and update within
+    ``DP_F64_RTOL``; returns the numbers."""
+    first, bn = rep["step"]["first_step"], rep["step"]["batchnorm_fused_vs_plain"]
+    print(f"[dp] {world}, global BatchNorm fused CUDA branch vs plain branch at {DP_BN_SHAPE}: "
+          f"max|d| / max|plain| {json.dumps(bn)}")
+    for run in ("ce f64", "ce", "lovasz"):
+        a, b = first[f"{run} loss plain"], first[f"{run} loss data-parallel"]
+        print(f"[dp] {world}, first {run} step from the same weights on the same rows (TF32 "
+              f"off, cuDNN deterministic): loss one process {a!r} (again "
+              f"{first[f'{run} loss plain again']!r}), data-parallel {b!r}; worst entry's "
+              f"state max|d| / max|one process|, update max|d| / max|one-process update|: "
+              f"one process again {first[f'{run} plain again']}, data-parallel "
+              f"{first[f'{run} data-parallel']}")
+    for k, v in bn.items():
+        check(v <= DP_BN_RTOL, f"{world} global BatchNorm {k}: fused vs plain {v:.3g}")
+    for run in ("ce f64", "ce", "lovasz"):
+        a, b = first[f"{run} loss plain"], first[f"{run} loss data-parallel"]
+        check(abs(a - b) <= DP_STEP1_RTOL * abs(a), f"{world} first {run} loss {b} vs {a}")
+    state, update, entry = first["ce f64 data-parallel"]
+    check(state <= DP_F64_RTOL and update <= DP_F64_RTOL,
+          f"{world} first float64 step: state {state:.3g}, update {update:.3g} ({entry}) "
+          f"> {DP_F64_RTOL}")
+    return first
+
+
+def data_parallel_path(U, S, Hk, torch, tau, one_loss, card):
+    """Phase 4g.  The data-parallel path at world 1 over NCCL, launched by
+    ``torch.distributed.run``, on a flagship checkpoint: ``eval_miou``,
+    ``eval_br_ent`` and ``eval_br_sim`` with ``--pallas_head``,
+    ``ee_dnn_op_ne --engine masked --pallas_head`` at phase 4c's split tau,
+    and one epoch of ``main_bradeepv3`` sorted and ``-G 1024``; the same
+    CLI runs in this process give the one-process rows.  Checks: the CSV
+    rows equal the one-process rows; the first train step against one
+    process and the global BatchNorm's fused branch against its plain one
+    (:func:`check_first_step`, :func:`dp_bn_check`);
+    each training run's epoch loss within the spread of two one-process
+    runs, a smoke check (phase 4b's and one more here,
+    ``DP_LOSS_SPREAD``, ``DP_LOSS_FLOOR``); each kernel launched as its
+    path implies (the eval heads 3 exits x 2 batches, the masked engine's
+    B and C as in the one-process run, 4 sorts and unsorts or 4 E and F
+    calls a training epoch); every collective of each path issued.  Then
+    the throughput of both paths, and with two or more GPUs the same runs
+    at world 2 held to world 1.  Returns the numbers for the kernels line."""
+    plan_runs = None
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        for sub in ("one", "dp1", "dp2"):
+            (tmp / sub).mkdir()
+        ckpt = flagship_checkpoint(str(tmp / "dp1"), torch)
+        plan = dp_plan(ckpt, tau, tmp / "dp1")
+        plan_runs = plan["runs"]
+        one = {}
+        cwd = os.getcwd()
+        os.chdir(tmp / "one")
+        try:
+            for name, (module, argv) in plan_runs.items():
+                one[name] = dp_run(torch, module, argv)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        rep = dp_launch(plan, tmp, 1, 900)
+        check(rep["world"] == 1, f"world {rep['world']}, want 1")
+        for name, (wall, launches, coll) in one.items():
+            got = rep["runs"][name]
+            print(f"[dp] {name}: one process {wall:.2f} s, launches {launches}; world 1 "
+                  f"{got['wall_s']:.2f} s, launches {got['launches']}, collectives "
+                  f"{got['collectives']}")
+            check(not coll, f"{name}: the one-process run issued collectives {coll}")
+            want_coll = {"all_reduce"}
+            if name.startswith("ee_dnn_op"):
+                want_coll = {"all_gather"}
+            elif name in DP_TRAIN_RUNS:
+                want_coll = {"all_reduce", "all_gather", "broadcast", "barrier"}
+            for kind in want_coll:
+                check(got["collectives"].get(kind, 0) > 0, f"{name}: no {kind} issued")
+            if name in DP_CSVS:
+                check(got["launches"] == launches,
+                      f"{name}: launches {got['launches']} at world 1, {launches} in one process")
+                a = read_csv(tmp / "one" / DP_CSVS[name])
+                b = read_csv(tmp / "dp1" / DP_CSVS[name])
+                check(a == b and len(a) == 1, f"{name}: world-1 rows {b} != one-process rows {a}")
+        for name, kernel in (("eval_miou", U.upsample_argmax_confusion),
+                             ("eval_br_ent", U.upsample_entropy_argmax),
+                             ("eval_br_sim", U.upsample_argmax)):
+            n = rep["runs"][name]["launches"][kernel.__name__]
+            check(n == 3 * 2, f"{name}: {kernel.__name__} launched {n} times, want 3 x 2")
+        masked = rep["runs"]["ee_dnn_op_ne masked"]["launches"]
+        check(masked[U.upsample_entropy_argmax.__name__] > 0, f"masked engine launches {masked}")
+        for name in DP_TRAIN_RUNS:
+            got = rep["runs"][name]["launches"]
+            ks = S.KERNELS if name == "lovasz" else Hk.KERNELS
+            for k in S.KERNELS + Hk.KERNELS:
+                want = 4 * TRAIN_ACCUM if k in ks else 0
+                check(got[k.__name__] == want,
+                      f"{name} at world 1: {k.__name__} launched {got[k.__name__]}, want {want}")
+            loss_a = one_loss[name]
+            loss_b = float(read_csv(tmp / "one" / "synthetic_results" / name
+                                    / f"{name}_tr.csv")[0]["train_loss"])
+            loss_dp = float(read_csv(tmp / "dp1" / "synthetic_results" / name
+                                     / f"{name}_tr.csv")[0]["train_loss"])
+            tol = max(DP_LOSS_SPREAD * abs(loss_a - loss_b), DP_LOSS_FLOOR * abs(loss_a))
+            print(f"[dp] {name}: epoch loss one process {loss_a!r} and {loss_b!r}, world 1 "
+                  f"{loss_dp!r} (|d| {abs(loss_dp - loss_a):.3g}, allowed {tol:.3g})")
+            check(abs(loss_dp - loss_a) <= tol, f"{name}: world-1 epoch loss {loss_dp} vs {loss_a}")
+            out[f"{name} epoch loss"] = {"one_process": [loss_a, loss_b], "world_1": loss_dp}
+        first = check_first_step(rep, "world 1")
+        out["first_step"] = first
+        out["batchnorm_fused_vs_plain"] = rep["step"]["batchnorm_fused_vs_plain"]
+        out["trace"] = rep["step"]["trace"]
+        for mode, t in out["trace"].items():
+            print(f"[dp-profile] one train step (per-batch Lovász, batch 16, 512x512), {mode}: "
+                  + ("not measured" if t is None else json.dumps(t)) + f" ({card})")
+        for key, vals in rep["images_per_s"].items():
+            print(f"[dp-throughput] {key}: {[round(v, 2) for v in vals]} images/s at 512x512 "
+                  f"({card})")
+        out["world_1_images_per_s"] = rep["images_per_s"]
+        out["world_1_launches"] = {n: r["launches"] for n, r in rep["runs"].items()}
+        out["world_1_collectives"] = {n: r["collectives"] for n, r in rep["runs"].items()}
+
+        if torch.cuda.device_count() < 2:
+            print(f"[dp] one GPU ({torch.cuda.device_count()}): the 2-rank case was not run")
+            out["world_2"] = None
+            return out
+        plan2 = dict(plan, dir=str(tmp / "dp2"))
+        rep2 = dp_launch(plan2, tmp, 2, 900)
+        check(rep2["world"] == 2, f"world {rep2['world']}, want 2")
+        for name in DP_CSVS:
+            a = read_csv(tmp / "dp1" / DP_CSVS[name])
+            b = read_csv(tmp / "dp2" / DP_CSVS[name])
+            check(a == b, f"{name}: world-2 rows {b} != world-1 rows {a}")
+        for name in DP_TRAIN_RUNS:
+            loss_a = out[f"{name} epoch loss"]["one_process"]
+            loss_2 = float(read_csv(tmp / "dp2" / "synthetic_results" / name
+                                    / f"{name}_tr.csv")[0]["train_loss"])
+            tol = max(DP_LOSS_SPREAD * abs(loss_a[0] - loss_a[1]), DP_LOSS_FLOOR * abs(loss_a[0]))
+            print(f"[dp] {name}: world 2 epoch loss {loss_2!r}")
+            check(abs(loss_2 - loss_a[0]) <= tol, f"{name}: world-2 epoch loss {loss_2}")
+        first2 = check_first_step(rep2, "world 2")
+        for run in ("ce f64", "ce", "lovasz"):
+            a, b = first[f"{run} loss plain"], first2[f"{run} loss data-parallel"]
+            check(abs(a - b) <= DP_STEP1_RTOL * abs(a), f"world-2 first {run} loss {b} vs {a}")
+        for key, vals in rep2["images_per_s"].items():
+            print(f"[dp-throughput] world 2 {key}: {[round(v, 2) for v in vals]} images/s")
+        out["world_2"] = {"images_per_s": rep2["images_per_s"],
+                          "collectives": {n: r["collectives"] for n, r in rep2["runs"].items()}}
+    return out
+
+
 KERNEL_INFO = (
     ("A", "upsample_argmax_confusion", "ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:441"),
     ("B", "upsample_entropy_argmax", "ee_semantic_segmentation_tpu/ops/pallas/upsample_argmax.py:284"),
@@ -1774,6 +2271,8 @@ HIST_INFO = (
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 4g, started by torch.distributed.run
+        return dp_worker(pathlib.Path(sys.argv[2]))
     # ---------------------------------------------------------------- phase 1
     if not (ROOT / PKG).is_dir():
         print(f"chip_smoke: {PKG}/ not found beside {__file__}; run from a checkout",
@@ -1841,8 +2340,12 @@ def main() -> int:
     mnv3_launches, mnv3_ips = mobilenet_path(U, S, torch)
 
     # --------------------------------------------------------------- phase 4b
-    launches.update(training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch))
+    train_launches, epoch_loss = training_path(S, Hk, U.KERNELS + S.KERNELS + Hk.KERNELS, torch)
+    launches.update(train_launches)
     train_ips, kernel_share, in_step = training_throughput(torch)
+
+    # --------------------------------------------------------------- phase 4g
+    dp = data_parallel_path(U, S, Hk, torch, tau_split, epoch_loss, card.splitlines()[0])
 
     # ---------------------------------------------------------------- phase 5
     print(f"[profiler] {PROFILER_GUARDS} guard kernels a session: {json.dumps(profiler_tally)}")
@@ -1920,7 +2423,8 @@ def main() -> int:
                       "mnv3_images_per_s": mnv3_ips, "serving_images_per_s": serving_ips,
                       "serving_stats": serving_stats, "export_images_per_s": export_ips,
                       "train_images_per_s": train_ips,
-                      "loss_kernel_share_of_train_step": kernel_share}))
+                      "loss_kernel_share_of_train_step": kernel_share,
+                      "data_parallel": dp}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

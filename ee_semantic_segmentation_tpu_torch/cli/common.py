@@ -1,9 +1,11 @@
-"""Shared CLI plumbing: device choice, checkpoint loading, the eval forward,
-dataset resolution, CSV append.
+"""Shared CLI plumbing: device choice, the data-parallel mesh, checkpoint
+loading, the eval forward, dataset resolution, CSV append.
 
-Port of ``ee_semantic_segmentation_tpu/cli/common.py`` without the mesh.  A
-"model" is a checkpoint path whose ``<path>.json`` sidecar holds the
-BranchyConfig (``train/checkpoint.py``).
+Port of ``ee_semantic_segmentation_tpu/cli/common.py``.  A "model" is a
+checkpoint path whose ``<path>.json`` sidecar holds the BranchyConfig
+(``train/checkpoint.py``).  Under ``torchrun`` every rank loads the model
+onto its own GPU and runs its shard (:func:`resolve_device_and_mesh`);
+only rank 0 appends CSV rows.
 """
 
 from __future__ import annotations
@@ -14,6 +16,11 @@ import os
 
 import torch
 
+from ee_semantic_segmentation_tpu_torch.parallel.mesh import (  # noqa: F401
+    initialize_multihost,
+    is_primary,
+    launched,
+)
 from ee_semantic_segmentation_tpu_torch.train.checkpoint import load_model  # noqa: F401
 
 
@@ -29,6 +36,22 @@ def resolve_device(name: str) -> torch.device:
         raise RuntimeError(
             "CUDA is not available on this host; pass --device cpu to run on the CPU")
     return torch.device(name)
+
+
+def auto_mesh(device: torch.device):
+    """The data-parallel mesh when a launcher (``torchrun``) started this
+    process, at any world size, so a one-process launch runs the
+    data-parallel path and its collectives; else None, the plain path.
+    NCCL on ``cuda``, gloo on ``cpu``."""
+    return initialize_multihost(device=device.type)
+
+
+def resolve_device_and_mesh(name: str):
+    """``--device`` value -> (device, mesh): under a launcher the device is
+    this rank's GPU ``cuda:LOCAL_RANK`` (the CPU with ``--device cpu``)."""
+    device = resolve_device(name)
+    mesh = auto_mesh(device)
+    return (device if mesh is None else mesh.device), mesh
 
 
 def forward_fn(model):
@@ -76,7 +99,9 @@ def append_csv(res: dict, save_at: str, index: str = "net_id", fillna=None):
     """Append the rows of ``res`` (column -> list of values, ``index``
     first) to ``save_at``, writing the header only for a new file.  Same
     layout as the JAX package's pandas ``to_csv``: NaN as an empty field
-    unless ``fillna`` is given."""
+    unless ``fillna`` is given.  In a data-parallel run only rank 0 writes."""
+    if not is_primary():
+        return
     cols = [index] + [k for k in res if k != index]
     new = not os.path.exists(save_at)
     with open(save_at, "a", newline="") as fh:

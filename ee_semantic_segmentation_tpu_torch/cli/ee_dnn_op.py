@@ -6,7 +6,10 @@ plus ``--device``, the same row (exit histogram ``e_{i}``/``out``,
 first branch head, ``ig_bk``, the union-based ``mIoU``) appended to
 ``./ee_{n}_{metric}_lw_m2_res.csv``.  ``--engine seq`` (the default) runs
 ``ee/sequential.EarlyExitRunner`` image by image; ``--engine masked`` runs
-``ee/masked.make_masked_gated_apply`` over micro-batches of ``-b``.  Run as
+``ee/masked.make_masked_gated_apply`` over micro-batches of ``-b``, under
+``torchrun`` data-parallel (each rank runs its rows of every micro-batch;
+the sequential engine takes one image at a time and runs in one process
+only).  Run as
 
     python -m ee_semantic_segmentation_tpu_torch.cli.ee_dnn_op -M <ckpt> \\
         -m ssim -t 0.5 -i -s 512 512 -d synthetic -n 21 --engine masked -b 12
@@ -118,7 +121,7 @@ def run_masked(args, entropy: bool):
         (0, n_classes - 1) if ignore_bk else (n_classes - 1,))
     pool = {"max": "max", "min": "min"}.get(metric, "none") if entropy else "none"
 
-    device = common.resolve_device(args.device)
+    device, mesh = common.resolve_device_and_mesh(args.device)
     model = common.load_model(args.model, device)
     n_eexits = model.config.n_branches
     img_size = args.size
@@ -128,13 +131,14 @@ def run_masked(args, entropy: bool):
     fn = make_masked_gated_apply(
         model, tau=args.threshold, n_classes=n_classes, skip=skip,
         pool=pool, pool_size=args.pool_size, pallas_head=pallas_head,
-        metric="ent" if entropy else metric, sim_ignore=sim_ignore,
+        metric="ent" if entropy else metric, sim_ignore=sim_ignore, mesh=mesh,
     )
+    say = print if common.is_primary() else (lambda *a: None)
     if fn.kernel_head:
-        print("masked engine: kernel head (upsample_entropy_argmax at each gated branch, "
+        say("masked engine: kernel head (upsample_entropy_argmax at each gated branch, "
               "upsample_argmax at the final classifier)")
     else:
-        print("masked engine: plain head" + (
+        say("masked engine: plain head" + (
             " (--pallas_head takes the kernel head only for -m ent without pooling)"
             if pallas_head else ""))
     test_set = common.resolve_test_set(args.dataset, input_dim)
@@ -145,8 +149,9 @@ def run_masked(args, entropy: bool):
     n_imgs = 0
     for batch in loader:
         count = int(batch.get("count", len(batch["image"])))
-        images = torch.from_numpy(np.ascontiguousarray(batch["image"], np.float32)).to(device)
-        labels, exits = fn(images)
+        images = torch.from_numpy(np.ascontiguousarray(batch["image"], np.float32))
+        # with a mesh the engine moves this rank's rows to its GPU
+        labels, exits = fn(images if mesh is not None else images.to(device))
         prog(labels[:count], torch.from_numpy(np.asarray(batch["label"][:count])))
         for e, c in zip(*np.unique(exits[:count].cpu().numpy(), return_counts=True)):
             exit_counts[int(e)] = exit_counts.get(int(e), 0) + int(c)
@@ -201,6 +206,9 @@ def run(args, entropy: bool):
 
     if getattr(args, "engine", "seq") == "masked":
         return run_masked(args, entropy)
+    if common.launched():
+        raise SystemExit("--engine seq runs one image at a time in one process; under "
+                         "torchrun use --engine masked")
 
     n_classes = args.n_classes
     metric = args.metric

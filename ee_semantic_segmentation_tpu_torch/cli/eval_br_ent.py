@@ -3,7 +3,7 @@
 Port of ``ee_semantic_segmentation_tpu/cli/eval_br_ent.py``: same flags
 (-m ent|max|min, -t threshold, -S skip, -p pool_size) and the same CSV row
 schema (b{i}_mIoU, b{i}_count, mIoU_out, count_out, mIoU_gl, out_gl, t,
-pool, pool_size), plus ``--device``.  Run as
+pool, pool_size), plus ``--device``; under ``torchrun`` data-parallel.  Run as
 
     python -m ee_semantic_segmentation_tpu_torch.cli.eval_br_ent -M <ckpt> \\
         -c 21 -D 512 512 -d synthetic -b 12 -t 0.5 --pallas_head
@@ -51,7 +51,7 @@ def main(argv=None):
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.ee.batch_eval import br_evaluator_entropy_fused
 
-    device = common.resolve_device(args.device)
+    device, mesh = common.resolve_device_and_mesh(args.device)
     input_dim = common.resolve_dims(args.dimensions)
     test_set = common.resolve_test_set(args.dataset, input_dim)
     loader = DataLoader(test_set, args.batch_size)
@@ -67,7 +67,7 @@ def main(argv=None):
         vals = br_evaluator_entropy_fused(
             model, n_exits, args.n_classes, loader,
             args.threshold, metric=args.metric, size=args.pool_size, skip=args.skip,
-            pallas_head=args.pallas_head,
+            pallas_head=args.pallas_head, mesh=mesh,
         )
         for k, v in vals.items():
             res[k].append(v)

@@ -4,7 +4,7 @@ Port of ``ee_semantic_segmentation_tpu/cli/eval_br_sim.py`` (and, through
 ``image_level``, of its ``eval_br_images``): the same flags (-m
 ssim|mse|nmi|vi|h_xy|h_yx, -t threshold, -S skip) and the same CSV row
 schema (b{i}_mIoU, b{i}_count, mIoU_out, count_out, mIoU_gl, out_gl, t,
-metric), plus ``--device``.  Run as
+metric), plus ``--device``; under ``torchrun`` data-parallel.  Run as
 
     python -m ee_semantic_segmentation_tpu_torch.cli.eval_br_sim -M <ckpt> \\
         -c 21 -D 512 512 -d synthetic -b 12 -m ssim -t 0.5 --pallas_head
@@ -55,7 +55,7 @@ def main(argv=None, image_level: bool = False):
         br_evaluator_similarity_fused,
     )
 
-    device = common.resolve_device(args.device)
+    device, mesh = common.resolve_device_and_mesh(args.device)
     input_dim = common.resolve_dims(args.dimensions)
     test_set = common.resolve_test_set(args.dataset, input_dim)
     loader = DataLoader(test_set, args.batch_size)
@@ -68,7 +68,7 @@ def main(argv=None, image_level: bool = False):
             print(f"Evaluating {net_id}...")
         res["net_id"].append(net_id)
         n_exits = (args.n_branches or model.config.n_branches) + 1
-        kw = dict(ignore=(args.n_classes - 1,), skip=args.skip)
+        kw = dict(ignore=(args.n_classes - 1,), skip=args.skip, mesh=mesh)
         if image_level:
             vals = br_evaluator_similarity(model, n_exits, args.n_classes, loader, args.metric,
                                            args.threshold, image_level=True, **kw)

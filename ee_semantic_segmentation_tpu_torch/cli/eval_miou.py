@@ -1,7 +1,8 @@
 """Per-exit test mIoU of saved models -> appended CSV.
 
 Port of ``ee_semantic_segmentation_tpu/cli/eval_miou.py``: same flags, same
-``{net_id, b{i}_mIoU..., mIoU}`` CSV row schema, plus ``--device``.  Run as
+``{net_id, b{i}_mIoU..., mIoU}`` CSV row schema, plus ``--device``; under
+``torchrun`` data-parallel (``cli/common.resolve_device_and_mesh``).  Run as
 
     python -m ee_semantic_segmentation_tpu_torch.cli.eval_miou -M <ckpt> \\
         -c 21 -D 512 512 -d synthetic -b 12 --pallas_head
@@ -46,7 +47,7 @@ def main(argv=None):
         mIoU_evaluator_fused,
     )
 
-    device = common.resolve_device(args.device)
+    device, mesh = common.resolve_device_and_mesh(args.device)
     input_dim = common.resolve_dims(args.dimensions)
     test_set = common.resolve_test_set(args.dataset, input_dim)
     loader = DataLoader(test_set, args.batch_size)
@@ -60,7 +61,8 @@ def main(argv=None):
         res["net_id"].append(net_id)
         n_exits = (args.n_branches or model.config.n_branches) + 1
         step = make_kernel_miou_step_fn(model, args.n_classes) if args.pallas_head else None
-        vals = mIoU_evaluator_fused(model, n_exits, args.n_classes, loader, step=step)
+        vals = mIoU_evaluator_fused(model, n_exits, args.n_classes, loader, step=step,
+                                    mesh=mesh)
         for k, v in vals.items():
             res[k].append(v)
         if args.verbose:

@@ -11,9 +11,18 @@ ignore=void, n_branches)`` driving ``train/trainer.eval_deepv3``.  Run as
 Checkpoints land in ``./<dataset>_results/<Name>/<Name>{.pt,.opt.pt,.json}``,
 progress in ``./<dataset>_deepv3_msgs.txt``, the test row in
 ``./mIoU_<n>_branches_results.csv``.  ``-G <bins>`` trains with the
-sort-free histogram Lovász (kernels E and F).  Not ported yet, and raising
-when asked for: ``--sp > 1`` (spatial partitioning over several devices,
-ROADMAP.md queue A item 6).
+sort-free histogram Lovász (kernels E and F).
+
+Under ``torchrun`` the run is data-parallel, one process per GPU
+(``train/trainer.py``): ``-b`` stays the global batch, every rank draws
+it and trains its rows of it, and only rank 0 writes checkpoints, CSVs
+and messages::
+
+    torchrun --nproc_per_node=4 -m ee_semantic_segmentation_tpu_torch.cli.main_bradeepv3 \\
+        -t resnet50 -n 2 -D 512 -b 16 -e 1 -d synthetic
+
+Not ported yet, and raising when asked for: ``--sp > 1`` (height sharding,
+ROADMAP.md item A6b).
 """
 
 from __future__ import annotations
@@ -66,8 +75,8 @@ def build_parser():
     p.add_argument("--seed", type=int, default=0,
                    help="init RNG seed (torch.manual_seed before the model is built)")
     p.add_argument("--sp", type=int, default=1,
-                   help="spatial partitioning over several devices (not ported yet: "
-                        "values > 1 raise)")
+                   help="height sharding over several devices (not ported yet, "
+                        "ROADMAP.md item A6b: values > 1 raise)")
     common.add_device_flag(p)
     return p
 
@@ -85,9 +94,9 @@ def resolve_input_dim(dims):
 def check_ported(args) -> None:
     """Raise for the options whose code paths are not ported yet."""
     if args.sp > 1:
-        raise NotImplementedError(
-            "--sp > 1: spatial partitioning over several devices is not ported yet "
-            "(ROADMAP.md queue A item 6, multi-GPU)")
+        from ee_semantic_segmentation_tpu_torch.parallel.mesh import A6B
+
+        raise NotImplementedError(f"--sp {args.sp}: {A6B}")
 
 
 def make_dts_info(args, loss):

@@ -28,7 +28,29 @@ class Batch(dict):
     __getattr__ = dict.__getitem__
 
 
+def _process_rank() -> tuple[int, int]:
+    """(rank, world size) of the initialized process group, else (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 class DataLoader:
+    """Batches of a dataset, ``batch_size`` a batch, assembled by a thread
+    pool ahead of use; the last batch is padded and carries its ``count``.
+
+    ``shard_by_process=True`` (data parallelism over W processes): every
+    process draws the same permutation ``idx`` and keeps ``idx[rank::W]``,
+    and ``batch_size`` b is per process.  The processes' k-th batches are
+    then together exactly the JAX package's global batch
+    ``idx[k*W*b:(k+1)*W*b]``, the one-process batch of W*b: rank r holds its
+    rows ``k*W*b + j*W + r``.  Without a process group it is the
+    one-process loader.  The port's trainer does not use it: every rank
+    draws the one-process batches and the train step runs its contiguous
+    block of each (``parallel/mesh.py``)."""
+
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, pad_final: bool = True, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 2,
@@ -42,10 +64,7 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.epoch = 0
-        if shard_by_process:
-            raise NotImplementedError(
-                "shard_by_process: multi-process input sharding is not ported "
-                "yet (ROADMAP.md queue A, multi-GPU)")
+        self.shard_by_process = shard_by_process
 
     def __len__(self):
         n = len(self._indices())
@@ -60,6 +79,9 @@ class DataLoader:
             idx = rng.permutation(n)
         else:
             idx = np.arange(n)
+        if self.shard_by_process:
+            rank, world = _process_rank()
+            idx = idx[rank::world]
         return idx
 
     def __iter__(self) -> Iterator[Batch]:
@@ -77,7 +99,12 @@ class DataLoader:
             rng = np.random.default_rng(base_seed + int(ds_index))
             return slot, self.dataset.get(int(ds_index), rng)
 
-        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+        # the batch assemblies in flight (up to prefetch + 1) each hold a
+        # thread while they wait for their images, so they have threads of
+        # their own: in the image loads' pool they could take every thread
+        # (a loader with num_workers <= prefetch hung)
+        with cf.ThreadPoolExecutor(self.num_workers) as pool, \
+                cf.ThreadPoolExecutor(self.prefetch + 1) as assembly:
             window: list = []
 
             def assemble(batch_ids):
@@ -95,13 +122,13 @@ class DataLoader:
             it = iter(batches)
             try:
                 for _ in range(self.prefetch):
-                    window.append(pool.submit(assemble, next(it)))
+                    window.append(assembly.submit(assemble, next(it)))
             except StopIteration:
                 pass
             while window:
                 fut = window.pop(0)
                 try:
-                    window.append(pool.submit(assemble, next(it)))
+                    window.append(assembly.submit(assemble, next(it)))
                 except StopIteration:
                     pass
                 yield fut.result()

@@ -24,9 +24,18 @@ take their plain versions.
 
 Batches carry a ``count`` of valid rows (the loader pads the last batch);
 padded rows are masked out of every count.  Everything runs under
-``torch.inference_mode()`` with the model in ``eval()``.  The JAX package's
-``mesh``/``shard_map`` variants are not ported (multi-GPU is a ROADMAP.md
-item).
+``torch.inference_mode()`` with the model in ``eval()``.  The counts of an
+evaluation are summed on the device and read once at its end.
+
+``mesh`` (a ``parallel/mesh.DataMesh``) is the counterpart of the JAX
+package's ``_pad_to_devices`` and ``shard_map`` steps: every rank reads
+the same host batch, pads it to a multiple of the world size with repeats
+of its last row, takes its block of rows and rebases ``count`` to its
+block (``parallel/mesh.shard_batch(pad=True)``); each rank runs the whole
+step on its block, and
+the integer counts of the evaluation are all-reduced once at its end, so
+they equal the one-process counts bit for bit.  The per-image scores of
+``image_level`` are gathered in global image order.
 """
 
 from __future__ import annotations
@@ -51,16 +60,41 @@ from ee_semantic_segmentation_tpu_torch.ops.metrics import (
     img_mIoU,
     mIoU,
 )
+from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
 
 
 def _device_of(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _to_device(batch, device):
-    images = torch.from_numpy(np.ascontiguousarray(batch["image"], np.float32)).to(device)
-    labels = torch.from_numpy(np.ascontiguousarray(batch["label"], np.int32)).to(device)
-    return images, labels
+def _to_device(images, labels, device):
+    return (torch.from_numpy(np.ascontiguousarray(images, np.float32)).to(device),
+            torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(device))
+
+
+def _rank_batch(batch, mesh):
+    """(images, labels, count) of a host batch, or with a mesh of this
+    rank's padded block of it."""
+    if mesh is not None:
+        batch = pm.shard_batch(mesh, batch, pad=True)
+    images = batch["image"]
+    return images, batch["label"], int(batch.get("count", len(images)))
+
+
+def _sum_counts(acc, *parts):
+    """Add one batch's count tensors to the running int64 sums ``acc``
+    (None before the first batch)."""
+    parts = [p.long() for p in parts]
+    return parts if acc is None else [a + p for a, p in zip(acc, parts)]
+
+
+def _reduced_counts(acc, mesh):
+    """The sums as float64 numpy arrays, summed over the ranks with a mesh
+    (one all-reduce of every sum)."""
+    if mesh is not None:
+        flat = pm.all_reduce(torch.cat([a.reshape(-1) for a in acc]), mesh)
+        acc = [v.view_as(a) for v, a in zip(flat.split([a.numel() for a in acc]), acc)]
+    return [a.double().cpu().numpy() for a in acc]
 
 
 def make_fused_miou_step_fn(model, num_classes: int):
@@ -91,49 +125,55 @@ def make_kernel_miou_step_fn(model, num_classes: int):
     return step
 
 
-def mIoU_evaluator_fused(model, n_exits, n_classes, loader, *, empty_class="nan", step=None):
+def _miou_result(accs, acc, mesh):
+    if acc is not None:
+        (conf,) = _reduced_counts(acc, mesh)
+        for i, a in enumerate(accs):
+            a.accumulator += conf[i]
+    res = {f"b{i + 1}_mIoU": accs[i].compute() for i in range(len(accs) - 1)}
+    res["mIoU"] = accs[-1].compute()
+    return res
+
+
+def mIoU_evaluator_fused(model, n_exits, n_classes, loader, *, empty_class="nan", step=None,
+                         mesh=None):
     """Per-exit dataset mIoU (eval_mIoU.py:15-40 equivalent).
 
     ``step``: a :func:`make_fused_miou_step_fn` or
     :func:`make_kernel_miou_step_fn` result; the plain head by default.
     Returns ``{'b1_mIoU': ..., ..., 'mIoU': ...}``; ``empty_class`` is the
     policy for classes absent from both prediction and truth ('nan', the
-    reference's; 'one'; 'skip').
+    reference's; 'one'; 'skip').  ``mesh``: each rank evaluates its block
+    of every batch (module docstring).
     """
     step = step or make_fused_miou_step_fn(model, n_classes)
     device = _device_of(model)
     model.eval()
     accs = [mIoU(n_classes, empty_class=empty_class) for _ in range(n_exits)]
+    acc = None
     with torch.inference_mode():
         for batch in loader:
-            count = int(batch.get("count", len(batch["image"])))
-            images, labels = _to_device(batch, device)
-            conf = step(images, labels, count).double().cpu().numpy()
-            for i in range(n_exits):
-                accs[i].accumulator += conf[i]
-    res = {f"b{i + 1}_mIoU": accs[i].compute() for i in range(n_exits - 1)}
-    res["mIoU"] = accs[-1].compute()
-    return res
+            images, labels, count = _rank_batch(batch, mesh)
+            images, labels = _to_device(images, labels, device)
+            acc = _sum_counts(acc, step(images, labels, count))
+    return _miou_result(accs, acc, mesh)
 
 
-def mIoU_evaluator(forward_fn, n_exits, n_classes, loader, *, empty_class="nan"):
+def mIoU_evaluator(forward_fn, n_exits, n_classes, loader, *, empty_class="nan", mesh=None):
     """Per-exit dataset mIoU (eval_mIoU.py:15-40 equivalent) through
     ``forward_fn(images (N, H, W, 3)) -> (E, N, H, W, C)`` logits.  Returns
-    ``{'b1_mIoU': ..., ..., 'mIoU': ...}``; ``empty_class`` as in
-    :func:`mIoU_evaluator_fused`."""
+    ``{'b1_mIoU': ..., ..., 'mIoU': ...}``; ``empty_class`` and ``mesh`` as
+    in :func:`mIoU_evaluator_fused`."""
     accs = [mIoU(n_classes, empty_class=empty_class) for _ in range(n_exits)]
+    acc = None
     with torch.inference_mode():
         for batch in loader:
-            out = forward_fn(batch["image"])
-            count = int(batch.get("count", out.shape[1]))
-            labels = torch.as_tensor(batch["label"][:count]).to(out.device)
-            conf = torch.stack([confusion_update(o[:count], labels, n_classes) for o in out])
-            conf = conf.double().cpu().numpy()
-            for i in range(n_exits):
-                accs[i].accumulator += conf[i]
-    res = {f"b{i + 1}_mIoU": accs[i].compute() for i in range(n_exits - 1)}
-    res["mIoU"] = accs[-1].compute()
-    return res
+            images, labels, count = _rank_batch(batch, mesh)
+            out = forward_fn(images)
+            labels = torch.as_tensor(labels[:count]).to(out.device)
+            acc = _sum_counts(acc, torch.stack([confusion_update(o[:count], labels, n_classes)
+                                                for o in out]))
+    return _miou_result(accs, acc, mesh)
 
 
 def _finalize_gated(res_accs, out_counts, n_branches, tau, extra):
@@ -167,16 +207,27 @@ def _bucketed_confusion_masked(preds, labels, exit_idx, valid, num_classes: int)
     return bucketed, masked_sum(chosen, valid)
 
 
-def _accumulate_gated(accs, counts, bucketed, chosen_conf, exit_counts, count):
-    """Add one batch's per-exit and chosen-map counts to the ``mIoU``
-    accumulators (the exits', then the chosen maps' last) and its exit
-    histogram and image count to ``counts``."""
-    bucketed = bucketed.double().cpu().numpy()
-    for e in range(len(bucketed)):
-        accs[e].accumulator += bucketed[e]
-    accs[-1].accumulator += chosen_conf.double().cpu().numpy()
-    counts[:-1] += exit_counts
-    counts[-1] += count
+def _exit_histogram(exit_idx, valid, n_exits: int):
+    """(E,) number of valid images routed to each exit."""
+    e = torch.arange(n_exits, device=exit_idx.device)
+    return ((exit_idx[None, :] == e[:, None]) & valid[None, :]).sum(dim=1)
+
+
+def _gated_result(acc, n_images, mesh, n_branches, tau, n_classes, extra):
+    """The gated policy's result from the evaluation's sums ``acc``
+    ((E, 3, C) per-exit counts, (3, C) chosen-map counts, (E,) exit
+    histogram) and its image count."""
+    n_exits = n_branches + 1
+    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
+    counts = np.zeros(n_exits + 1, np.int64)
+    if acc is not None:
+        bucketed, chosen, exits = _reduced_counts(acc, mesh)
+        for e in range(n_exits):
+            accs[e].accumulator += bucketed[e]
+        accs[-1].accumulator += chosen
+        counts[:-1] += exits.astype(np.int64)
+    counts[-1] = n_images
+    return _finalize_gated(accs, counts, n_branches, tau, extra)
 
 
 def _first_firing(fires, skip: int, n_branches: int):
@@ -190,7 +241,7 @@ def _first_firing(fires, skip: int, n_branches: int):
 
 def br_evaluator_entropy_fused(
     model, n_exits, n_classes, loader, tau, *, metric="ent", size=1, skip=0,
-    pallas_head: bool = False,
+    pallas_head: bool = False, mesh=None,
 ):
     """Entropy-gated policy simulation (eval_br_ent.py:38-84 equivalent).
 
@@ -202,10 +253,10 @@ def br_evaluator_entropy_fused(
     ``pallas_head=True`` (entropy gate without pooling only, as in the JAX
     package) computes each exit's label map AND gate entropy with the fused
     CUDA kernel ``upsample_entropy_argmax`` from the low-res logits.
+    ``mesh``: each rank evaluates its block of every batch (module
+    docstring).
     """
     n_branches = n_exits - 1
-    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
-    counts = np.zeros(n_exits + 1, np.int64)
     pool_mode = {"ent": "none", "max": "max", "min": "min"}[metric.lower()]
     use_kernel = pallas_head and pool_mode == "none"
     device = _device_of(model)
@@ -228,45 +279,44 @@ def br_evaluator_entropy_fused(
         valid = torch.arange(N, device=images.device) < count
         bucketed, chosen_conf = _bucketed_confusion_masked(
             preds, labels, exit_idx, valid, num_classes=n_classes)
-        bucket_counts = ((exit_idx[None, :] == torch.arange(n_exits, device=images.device)[:, None])
-                         & valid[None, :]).sum(dim=1)
-        return bucketed, chosen_conf, bucket_counts
+        return bucketed, chosen_conf, _exit_histogram(exit_idx, valid, n_exits)
 
+    acc, n_images = None, 0
     with torch.inference_mode():
         for batch in loader:
-            count = int(batch.get("count", len(batch["image"])))
-            images, labels = _to_device(batch, device)
-            bucketed, chosen_conf, bucket_counts = body(images, labels, count)
-            _accumulate_gated(accs, counts, bucketed, chosen_conf, bucket_counts.cpu().numpy(),
-                              count)
-
-    return _finalize_gated(accs, counts, n_branches, tau, {"pool": metric, "pool_size": size})
+            n_images += int(batch.get("count", len(batch["image"])))
+            images, labels, count = _rank_batch(batch, mesh)
+            images, labels = _to_device(images, labels, device)
+            acc = _sum_counts(acc, *body(images, labels, count))
+    return _gated_result(acc, n_images, mesh, n_branches, tau, n_classes,
+                         {"pool": metric, "pool_size": size})
 
 
 def br_evaluator_entropy(
-    forward_fn, n_exits, n_classes, loader, tau, *, metric="ent", size=1, skip=0
+    forward_fn, n_exits, n_classes, loader, tau, *, metric="ent", size=1, skip=0, mesh=None
 ):
     """The entropy-gated policy of :func:`br_evaluator_entropy_fused` through
     ``forward_fn(images (N, H, W, 3)) -> (E, N, H, W, C)`` logits (the plain
-    head): the same accumulators and result."""
+    head): the same accumulators, result and ``mesh``."""
     n_branches = n_exits - 1
-    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
-    counts = np.zeros(n_exits + 1, np.int64)
     pool_mode = {"ent": "none", "max": "max", "min": "min"}[metric.lower()]
+    acc, n_images = None, 0
     with torch.inference_mode():
         for batch in loader:
-            out = forward_fn(batch["image"])
-            count = int(batch.get("count", out.shape[1]))
+            n_images += int(batch.get("count", len(batch["image"])))
+            images, labels, count = _rank_batch(batch, mesh)
+            out = forward_fn(images)
             stacked = out[:, :count]
-            labels = torch.as_tensor(batch["label"][:count]).to(out.device)
+            labels = torch.as_tensor(labels[:count]).to(out.device)
             ent = batched_norm_entropy(stacked[:-1], n_classes, pool_mode, size)  # (E-1, N)
             exit_idx = _first_firing(ent < tau, skip, n_branches)
             valid = torch.ones(count, dtype=torch.bool, device=out.device)
             bucketed, chosen_conf = _bucketed_confusion_masked(
                 stacked.argmax(dim=-1), labels, exit_idx, valid, num_classes=n_classes)
-            _accumulate_gated(accs, counts, bucketed, chosen_conf,
-                              np.bincount(exit_idx.cpu().numpy(), minlength=n_exits), count)
-    return _finalize_gated(accs, counts, n_branches, tau, {"pool": metric, "pool_size": size})
+            acc = _sum_counts(acc, bucketed, chosen_conf,
+                              _exit_histogram(exit_idx, valid, n_exits))
+    return _gated_result(acc, n_images, mesh, n_branches, tau, n_classes,
+                         {"pool": metric, "pool_size": size})
 
 
 def _similarity_exits(preds, metric: str, tau: float, n_classes: int, ignore, skip: int):
@@ -298,7 +348,7 @@ def _exit_maps(model, images, pallas_head: bool):
 
 def br_evaluator_similarity_fused(
     model, n_exits, n_classes, loader, metric, tau, *, ignore=(), skip=0,
-    pallas_head: bool = False,
+    pallas_head: bool = False, mesh=None,
 ):
     """Similarity-gated policy simulation (eval_br_sim.py:16-65 equivalent)
     with confusion-matrix accumulators.
@@ -307,39 +357,42 @@ def br_evaluator_similarity_fused(
     to the previous exit's.  The gates read only label maps, so
     ``pallas_head=True`` computes each exit's map with the fused CUDA
     upsample + argmax kernel ``upsample_argmax`` from the low-res logits.
+    ``mesh``: each rank evaluates its block of every batch (module
+    docstring).
     """
     n_branches = n_exits - 1
-    accs = [mIoU(n_classes) for _ in range(n_exits + 1)]
-    counts = np.zeros(n_exits + 1, np.int64)
     device = _device_of(model)
     model.eval()
+    acc, n_images = None, 0
     with torch.inference_mode():
         for batch in loader:
-            count = int(batch.get("count", len(batch["image"])))
-            images, labels = _to_device(batch, device)
+            n_images += int(batch.get("count", len(batch["image"])))
+            images, labels, count = _rank_batch(batch, mesh)
+            images, labels = _to_device(images, labels, device)
             preds = _exit_maps(model, images, pallas_head)
             exit_idx = _similarity_exits(preds, metric, tau, n_classes, ignore, skip)
             valid = torch.arange(images.shape[0], device=device) < count
             bucketed, chosen_conf = _bucketed_confusion_masked(
                 preds, labels, exit_idx, valid, num_classes=n_classes)
-            _accumulate_gated(accs, counts, bucketed, chosen_conf,
-                              np.bincount(exit_idx[:count].cpu().numpy(), minlength=n_exits),
-                              count)
-    return _finalize_gated(accs, counts, n_branches, tau, {"metric": metric})
+            acc = _sum_counts(acc, bucketed, chosen_conf,
+                              _exit_histogram(exit_idx, valid, n_exits))
+    return _gated_result(acc, n_images, mesh, n_branches, tau, n_classes, {"metric": metric})
 
 
 def br_evaluator_similarity(
     model, n_exits, n_classes, loader, metric, tau, *, ignore=(), skip=0,
-    image_level: bool = False,
+    image_level: bool = False, mesh=None,
 ):
     """The similarity-gated policy with the plain head;
     ``image_level=True`` mirrors eval_br_images.py: per-image mIoU
     accumulators (``img_mIoU`` over ``n_classes + 1`` classes, the void id
     included) instead of confusion matrices.  Each image's score is that of
-    the exit it takes; only (N,) scores and exit indices reach the host."""
+    the exit it takes; only (N,) scores and exit indices reach the host.
+    ``mesh``: each rank scores its block of every batch, and the scores and
+    exits are gathered in global image order before they are added."""
     if not image_level:
         return br_evaluator_similarity_fused(model, n_exits, n_classes, loader, metric, tau,
-                                             ignore=ignore, skip=skip)
+                                             ignore=ignore, skip=skip, mesh=mesh)
     n_branches = n_exits - 1
     accs = [img_mIoU(num_classes=n_classes + 1) for _ in range(n_exits + 1)]
     counts = np.zeros(n_exits + 1, np.int64)
@@ -347,12 +400,18 @@ def br_evaluator_similarity(
     model.eval()
     with torch.inference_mode():
         for batch in loader:
-            count = int(batch.get("count", len(batch["image"])))
-            images, labels = _to_device(batch, device)
+            n_rows, n_valid = len(batch["image"]), int(batch.get("count", len(batch["image"])))
+            images, labels, count = _rank_batch(batch, mesh)
+            images, labels = _to_device(images, labels, device)
             preds = _exit_maps(model, images, pallas_head=False)[:, :count]
             exit_idx = _similarity_exits(preds, metric, tau, n_classes, ignore, skip)
             chosen = preds[exit_idx, torch.arange(count, device=device)]
             scores = _img_miou_one(chosen.flatten(1), labels[:count].flatten(1), n_classes + 1)
+            if mesh is not None:  # every rank's images, in global order
+                sizes = pm.block_counts(n_rows, n_valid, mesh.world, pad=True)
+                exit_idx = pm.all_gather_dim(exit_idx, mesh, sizes, dim=0)
+                scores = pm.all_gather_dim(scores, mesh, sizes, dim=0)
+                count = n_valid
             for e, score in zip(exit_idx.tolist(), scores.tolist()):
                 accs[e].add_score(score)
                 accs[-1].add_score(score)

@@ -25,8 +25,14 @@ function's ``kernel_head`` says which head it runs.
 ``GatedForward`` is the same forward for ``torch.export`` (``ee/aot.py``):
 each stage under ``torch.cond`` on ``alive.any()``, no host read.
 
-The JAX package's ``mesh``/``shard_map`` variants are not ported (multi-GPU
-is a ROADMAP.md item).
+With a data-parallel ``mesh`` (``parallel/mesh.py``; the JAX package's
+``shard_map`` branch) every rank gets the same micro-batch, pads it to a
+multiple of the world size with repeats of its last row and runs the gated
+forward on its block of rows, so its stage skips are its own: a rank whose
+rows have all exited skips its remaining segments while another still
+computes.  The label maps and exits are gathered in global row order, so
+every rank returns the whole micro-batch's; rows never interact, so they
+equal the one-process rows bit for bit.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ee_semantic_segmentation_tpu_torch.ops.kernels.upsample_argmax import (
     upsample_argmax,
     upsample_entropy_argmax,
 )
+from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
 
 
 def make_masked_gated_apply(
@@ -53,6 +60,7 @@ def make_masked_gated_apply(
     pallas_head: bool = False,
     metric: str = "ent",
     sim_ignore=(),
+    mesh=None,
 ):
     """Build ``fn(x) -> (labels, exit_idx)``, the gated early-exit forward of
     one micro-batch.  ``metric='ent'`` is the entropy gate
@@ -67,11 +75,29 @@ def make_masked_gated_apply(
     exit_idx: (N,) int32, the 1-based exit (n + 1 = the final classifier).
 
     Branches k < skip are not gated.  ``fn.kernel_head`` is True where the
-    kernels B and C compute the heads.
+    kernels B and C compute the heads.  ``mesh``: every rank passes the
+    same x (on any device) and gets the whole micro-batch's result; each
+    runs its block of rows (module docstring).
     """
-    return _gated_forward_fn(model, tau=tau, n_classes=n_classes, skip=skip, pool=pool,
+    body = _gated_forward_fn(model, tau=tau, n_classes=n_classes, skip=skip, pool=pool,
                              pool_size=pool_size, pallas_head=pallas_head, metric=metric,
                              sim_ignore=sim_ignore)
+    return body if mesh is None else _sharded(body, mesh)
+
+
+def _sharded(body, mesh):
+    """``fn(x)``: ``body`` on this rank's block of x padded to a multiple
+    of the world size (``parallel/mesh.shard_batch``), its (labels,
+    exit_idx) gathered in global row order and trimmed to x's rows."""
+
+    def fn(x):
+        N = x.shape[0]
+        labels, exits = body(pm.shard_batch(mesh, x, pad=True).to(mesh.device))
+        return (pm.all_gather(labels, mesh).flatten(0, 1)[:N],
+                pm.all_gather(exits, mesh).flatten(0, 1)[:N])
+
+    fn.kernel_head = body.kernel_head
+    return fn
 
 
 class _Carry(NamedTuple):
@@ -235,14 +261,17 @@ class GatedForward(torch.nn.Module):
         return policy.finish(lab_last, carry)
 
 
-def make_masked_gated_scan(model, **kw):
+def make_masked_gated_scan(model, mesh=None, **kw):
     """Build ``fn(xs) -> (labels, exit_idx)`` over stacked micro-batches.
 
     xs: (S, B, H, W, 3), S micro-batches of B images, run one after another
     through the gated forward (the JAX package's ``lax.scan``); each skips
     its segments on its own.  Returns (S, B, H, W) labels and (S, B) exit
-    indices."""
+    indices.  ``mesh``: each micro-batch's rows are sharded over the ranks,
+    as in :func:`make_masked_gated_apply`."""
     body = _gated_forward_fn(model, **kw)
+    if mesh is not None:
+        body = _sharded(body, mesh)
 
     def scan_all(xs):
         outs = [body(x) for x in xs]

@@ -169,11 +169,26 @@ class BatchNorm(nn.BatchNorm2d):
     Eval mode is ``nn.BatchNorm2d``'s own: ``F.batch_norm`` with the running
     statistics.  Parameter and buffer names are ``nn.BatchNorm2d``'s, so
     state dicts and ``models/from_jax.py`` are unchanged.
+
+    With a data-parallel ``mesh`` (:func:`sync_batchnorm`), training takes
+    the statistics of the global batch, as the JAX package's BatchNorm does
+    on a sharded batch: :class:`_GlobalBatchNorm`.
     """
+
+    mesh = None  # a parallel.mesh.DataMesh: global-batch statistics in training
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.mesh,
+                                                  x.is_cuda)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+                self.num_batches_tracked.add_(1)
+            return y
         y, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
@@ -184,6 +199,108 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the global batch of a data-parallel mesh
+    (``torch.nn.SyncBatchNorm``'s pattern, with flax's statistics).
+
+    Forward: each rank's (count, mean, biased variance) per channel, all
+    gathered and combined (Chan's parallel variance; an empty shard has
+    count 0 and adds nothing), normalise with the global mean and biased
+    variance.  Returns (y, mean, var) so the module moves its running
+    buffers toward the biased variance, as flax does (``SyncBatchNorm``
+    moves them toward the unbiased one).  Backward: each rank's two sums
+    (of dy and of dy * (x - mean)) are all-reduced, so the input gradient
+    is that of the global normalisation; the scale and shift gradients
+    are this rank's shares, which the train step sums.
+
+    With ``fused`` (CUDA tensors only) the statistics and the two
+    elementwise passes are PyTorch's fused SyncBatchNorm operators
+    (``batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``), which
+    exist for CUDA only; else the same arithmetic in plain operations, the
+    version ``chip_smoke.py`` holds the fused one to."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, mesh, fused):
+        from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+
+        C = x.shape[1]
+        acc = torch.promote_types(x.dtype, torch.float32)
+        n = x.numel() // C
+        if n == 0:
+            mean = var = x.new_zeros(C, dtype=acc)
+        elif fused:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+            mean, var = mean.to(acc), (invstd.to(acc).pow(-2) - eps).clamp_min(0.0)
+        else:
+            var, mean = torch.var_mean(x.to(acc), dim=(0, 2, 3), correction=0)
+        stats = pm.all_gather(torch.cat([mean.new_full((1,), n), mean, var]), mesh)
+        counts, means, variances = stats[:, :1], stats[:, 1:C + 1], stats[:, C + 1:]
+        total = counts.sum().clamp_min(1.0)
+        g_mean = (counts * means).sum(0) / total
+        g_var = (counts * (variances + (means - g_mean).square())).sum(0) / total
+        invstd = torch.rsqrt(g_var + eps)
+        if n == 0:
+            y = torch.empty_like(x)
+        elif fused:
+            y = torch.batch_norm_elemt(x, weight, bias, g_mean, invstd, eps)
+        else:
+            y = ((x.to(acc) - _per_channel(g_mean)) * _per_channel(invstd * weight)
+                 + _per_channel(bias)).to(x.dtype)
+        ctx.save_for_backward(x, weight, g_mean, invstd, counts.view(-1))
+        ctx.mesh, ctx.fused = mesh, fused
+        ctx.mark_non_differentiable(g_mean, g_var)
+        return y, g_mean, g_var
+
+    @staticmethod
+    def backward(ctx, gy, _g_mean, _g_var):
+        from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
+
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        C = x.shape[1]
+        empty = x.numel() == 0
+        if empty:
+            sum_dy = sum_dy_xmu = mean.new_zeros(C)
+            g_weight, g_bias = torch.zeros_like(weight), torch.zeros_like(weight)
+        elif ctx.fused:
+            fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+            gy = gy.contiguous(memory_format=fmt)
+            sum_dy, sum_dy_xmu, g_weight, g_bias = torch.batch_norm_backward_reduce(
+                gy, x, mean, invstd, weight, True, True, True)
+        else:
+            g = gy.to(mean.dtype)
+            xmu = x.to(mean.dtype) - _per_channel(mean)
+            sum_dy, sum_dy_xmu = g.sum((0, 2, 3)), (g * xmu).sum((0, 2, 3))
+            g_weight, g_bias = (sum_dy_xmu * invstd).to(weight.dtype), sum_dy.to(weight.dtype)
+        sums = pm.all_reduce(torch.cat([sum_dy, sum_dy_xmu]), ctx.mesh)
+        sum_dy, sum_dy_xmu = sums[:C], sums[C:]
+        if empty:
+            gx = torch.zeros_like(x)
+        elif ctx.fused:
+            gx = torch.batch_norm_backward_elemt(gy, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+                                                 counts.to(torch.int32))
+        else:
+            total = counts.sum()
+            gx = (_per_channel(weight.to(mean.dtype) * invstd)
+                  * (g - _per_channel(sum_dy / total)
+                     - xmu * _per_channel(invstd.square() * sum_dy_xmu / total))).to(x.dtype)
+        return gx, g_weight, g_bias, None, None, None
+
+
+def sync_batchnorm(model: nn.Module, mesh) -> nn.Module:
+    """Give every :class:`BatchNorm` of ``model`` the data-parallel ``mesh``
+    (None: back to per-process statistics); returns the model."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
+    return model
 
 
 def bn(c: int) -> BatchNorm:

@@ -31,6 +31,20 @@ and a call makes one histogram launch forward (kernel E) and one table
 lookup backward (kernel F, ``ops/kernels/hist.py``).  It is approximate: a row's
 loss is within (max error - min error) / hist_bins of the exact one.
 
+Data parallelism (``mesh``, a ``parallel/mesh.DataMesh``): each rank
+holds its rows of the global batch, and the loss keeps its global-batch
+meaning, as the JAX package's does under GSPMD.  The per-batch sorted
+form gathers every rank's error, label and validity columns in rank order
+(the global pixel order), takes the present and most-frequent classes
+over the global labels, and sorts and unsorts the gathered rows (kernels
+D and D'), so every rank computes the one global loss; the backward
+returns this rank's columns.  The histogram form needs no gather: the
+error range is all-reduced (max, min) before kernel E, E's histograms are
+all-reduced (sum) before the tables, and kernel F looks up this rank's own
+pixels.  The per-image form is local to each image, and its mean divides
+by the global image count.  A distributed sort in place of the gather is a
+ROADMAP.md item.
+
 Layout: ``probas`` is (N, H, W, C) or (P, C), labels (N, H, W) or (P,).
 """
 
@@ -44,6 +58,7 @@ from ee_semantic_segmentation_tpu_torch.ops.kernels.hist import (
     table_lookup,
 )
 from ee_semantic_segmentation_tpu_torch.ops.kernels.sort import sort_rows, unsort_rows
+from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
 
 _NEG_BIG = -1e30
 _POS_MASK = (1 << 30) - 1
@@ -104,12 +119,19 @@ class _ClassLoss(torch.autograd.Function):
         return d_err, None, None, None, None
 
 
-def _hist_prepass(errors, valid, bins: int):
-    """Per-row (emax, inv_bucket_width) over the valid errors; zeros for a
-    row without any."""
-    emax = torch.where(valid, errors, -torch.inf).amax(-1)
-    emin = torch.where(valid, errors, torch.inf).amin(-1)
-    any_valid = valid.any(-1)
+def _hist_prepass(errors, valid, bins: int, mesh=None):
+    """Per-row (emax, inv_bucket_width) over the valid errors (of every
+    rank, with a mesh); zeros for a row without any."""
+    if errors.shape[-1]:
+        emax = torch.where(valid, errors, -torch.inf).amax(-1)
+        emin = torch.where(valid, errors, torch.inf).amin(-1)
+    else:  # an empty shard
+        emax = errors.new_full(errors.shape[:-1], -torch.inf)
+        emin = errors.new_full(errors.shape[:-1], torch.inf)
+    if mesh is not None:
+        pm.all_reduce(emax, mesh, "max")
+        pm.all_reduce(emin, mesh, "min")
+    any_valid = emax > -torch.inf
     rng = (emax - emin).clamp_min(1e-12)
     return torch.where(any_valid, emax, 0.0), torch.where(any_valid, bins / rng, 0.0)
 
@@ -149,13 +171,18 @@ class _HistClassLoss(torch.autograd.Function):
     Same contract as :class:`_ClassLoss`; d loss / d errors[r, p] is the
     mean Jaccard step of p's (bucket, fg) group in row r, looked up from
     the weight tables saved by the forward.  ``hist`` and ``lookup`` are
-    kernels E and F or their plain versions."""
+    kernels E and F or their plain versions.  With a ``mesh`` the rows are
+    this rank's columns of global rows: the error range and E's
+    histograms are all-reduced, so the losses are the global rows'."""
 
     @staticmethod
-    def forward(ctx, errors, fg, valid, bins, hist, lookup):
+    def forward(ctx, errors, fg, valid, bins, hist, lookup, mesh=None):
         errors, fg = errors.contiguous(), fg.contiguous()
-        emax, inv_w = _hist_prepass(errors, valid, bins)
-        loss, tables = _hist_tables(hist(errors, fg, emax, inv_w, bins=bins))
+        emax, inv_w = _hist_prepass(errors, valid, bins, mesh)
+        counts = hist(errors, fg, emax, inv_w, bins=bins)
+        if mesh is not None:
+            pm.all_reduce(counts, mesh)
+        loss, tables = _hist_tables(counts)
         ctx.save_for_backward(errors, fg, emax, inv_w, tables)
         ctx.bins, ctx.lookup = bins, lookup
         return loss
@@ -164,7 +191,7 @@ class _HistClassLoss(torch.autograd.Function):
     def backward(ctx, ct):
         errors, fg, emax, inv_w, tables = ctx.saved_tensors
         w = ctx.lookup(errors, fg, emax, inv_w, tables, bins=ctx.bins)
-        return w * ct[:, None], None, None, None, None, None
+        return w * ct[:, None], None, None, None, None, None, None
 
 
 def _class_counts(labels, valid, C: int) -> torch.Tensor:
@@ -174,14 +201,14 @@ def _class_counts(labels, valid, C: int) -> torch.Tensor:
     return counts.scatter_add_(1, labels.clamp(0, C - 1).to(torch.int64), inside.to(torch.int64))
 
 
-def _most_frequent_classes(labels, valid, C: int, k: int) -> torch.Tensor:
-    """(G, Pg) labels -> (G, k) class ids: present classes by pixel count,
-    most frequent first, then absent ones, ties in ascending class order
-    (the JAX package's stable argsort), ranked by pairwise comparison of
-    the C counts rather than by a sort."""
-    counts = _class_counts(labels, valid, C)
+def _most_frequent_classes(counts, k: int) -> torch.Tensor:
+    """(G, C) class pixel counts -> (G, k) class ids: present classes by
+    pixel count, most frequent first, then absent ones, ties in ascending
+    class order (the JAX package's stable argsort), ranked by pairwise
+    comparison of the C counts rather than by a sort."""
+    C = counts.shape[-1]
     key = torch.where(counts > 0, -counts, 1)
-    c = torch.arange(C, device=labels.device)
+    c = torch.arange(C, device=counts.device)
     before = (key[:, None, :] < key[:, :, None]) | (
         (key[:, None, :] == key[:, :, None]) & (c[None, :] < c[:, None]))
     rank = before.sum(-1)  # (G, C): the place of class c
@@ -196,11 +223,14 @@ def present_class_counts(labels, valid, C: int) -> torch.Tensor:
 
 def _exit_group_losses(probas, labels, valid, classes="present", max_present=None,
                        hist_bins=None, sort_kernels=SORT_KERNELS,
-                       hist_kernels=HIST_KERNELS) -> torch.Tensor:
+                       hist_kernels=HIST_KERNELS, mesh=None, cols=None) -> torch.Tensor:
     """Lovász of every (exit, group): ``probas`` (E, G, Pg, C), ``labels``
     and ``valid`` (G, Pg) -> (E, G) losses, from one sort (or, with
     ``hist_bins``, one histogram) of all E x G x classes rows.  A group is
-    an image (per-image loss) or the flat batch."""
+    an image (per-image loss) or the flat batch.  With a ``mesh`` the one
+    group (G = 1) is the global flat batch, of which this rank holds the
+    Pg pixels of its rows and ``cols`` gives every rank's pixel count in
+    rank order: the losses are the global batch's, equal on every rank."""
     if hist_bins is not None and not hist_bins_ok(hist_bins):
         raise ValueError(f"hist_bins={hist_bins} must be 128 * a power of two")
     E, G, Pg, C = probas.shape
@@ -210,7 +240,10 @@ def _exit_group_losses(probas, labels, valid, classes="present", max_present=Non
     compact = classes == "present" and max_present is not None and 0 < max_present < C
     if compact or not isinstance(classes, str):
         if compact:
-            class_ids = _most_frequent_classes(labels, valid, C, max_present)
+            counts = _class_counts(labels, valid, C)
+            if mesh is not None:
+                pm.all_reduce(counts, mesh)
+            class_ids = _most_frequent_classes(counts, max_present)
         else:
             class_ids = torch.as_tensor(tuple(classes), dtype=torch.int64,
                                         device=labels.device).expand(G, -1)
@@ -222,16 +255,26 @@ def _exit_group_losses(probas, labels, valid, classes="present", max_present=Non
         ids = torch.arange(C, device=labels.device)[None, :, None]
     fg = (labels[:, None, :] == ids) & valid[:, None, :]  # (G, K, Pg)
     errors = torch.where(valid[:, None, :], (fg.to(probas.dtype) - pred).abs(), _NEG_BIG)
-    rows = (errors.reshape(E * G * K, Pg),
+    errors = errors.reshape(E * G * K, Pg)
+    if mesh is not None and hist_bins is None:
+        # the global rows, in rank order: every rank sorts the same rows
+        errors = pm.gather_cols(errors, mesh, cols)
+        labels = pm.all_gather_dim(labels, mesh, cols)
+        valid = pm.all_gather_dim(valid.to(torch.uint8), mesh, cols).bool()
+        fg = (labels[:, None, :] == ids) & valid[:, None, :]
+        Pg = sum(cols)
+    rows = (errors,
             fg.expand(E, G, K, Pg).reshape(E * G * K, Pg),
             valid[None, :, None, :].expand(E, G, K, Pg).reshape(E * G * K, Pg))
     if hist_bins is None:
         losses = _ClassLoss.apply(*rows, *sort_kernels)
     else:
-        losses = _HistClassLoss.apply(*rows, hist_bins, *hist_kernels)
+        losses = _HistClassLoss.apply(*rows, hist_bins, *hist_kernels, mesh)
     losses = losses.view(E, G, K)
     if classes == "present":
         present = fg.any(-1)  # (G, K)
+        if mesh is not None and hist_bins is not None:
+            present = pm.all_reduce(present.to(torch.int32), mesh, "max").bool()
         n_present = present.sum(-1).to(losses.dtype)
         total = torch.where(present, losses, 0.0).sum(-1)
         return torch.where(n_present > 0, total / n_present.clamp_min(1.0), 0.0)
@@ -240,15 +283,22 @@ def _exit_group_losses(probas, labels, valid, classes="present", max_present=Non
 
 def _lovasz_exits(probas, labels, classes="present", per_image=False, ignore=None,
                   apply_softmax=False, max_present=None, hist_bins=None,
-                  sort_kernels=SORT_KERNELS, hist_kernels=HIST_KERNELS) -> torch.Tensor:
+                  sort_kernels=SORT_KERNELS, hist_kernels=HIST_KERNELS,
+                  mesh=None, rows=None) -> torch.Tensor:
     """Per-exit :func:`lovasz_softmax` of stacked (E, N, H, W, C) scores
     against shared (N, H, W) labels -> (E,), with one sort (or histogram)
     for all exits.  ``sort_kernels`` and ``hist_kernels`` are the (sort,
     unsort) and the (histogram, lookup) pairs to use (the tests and
-    ``chip_smoke.py`` pass the plain versions)."""
+    ``chip_smoke.py`` pass the plain versions).  ``mesh``: the rows are
+    this rank's shard of the global batch, ``rows`` every rank's row
+    count in rank order, and the losses are the global batch's (module
+    docstring)."""
     if probas.ndim == 4:  # (E, N, H, W) sigmoid-style -> single channel
         probas = probas[..., None]
     E, N, H, W, C = probas.shape
+    if mesh is not None and rows is None:
+        raise ValueError("a data-parallel Lovász loss needs rows, every rank's row count")
+    cols = None if rows is None else [r * H * W for r in rows]
     if apply_softmax:
         probas = torch.softmax(probas, dim=-1)
     flat_l = labels.reshape(N, H * W)
@@ -258,10 +308,12 @@ def _lovasz_exits(probas, labels, classes="present", per_image=False, ignore=Non
         per_group = _exit_group_losses(probas.reshape(E, N, H * W, C), flat_l, valid,
                                        classes, max_present, hist_bins, sort_kernels,
                                        hist_kernels)
-        return per_group.mean(-1)
+        if mesh is None:
+            return per_group.mean(-1)
+        return pm.global_sum(per_group.sum(-1), mesh) / max(sum(rows), 1)
     return _exit_group_losses(probas.reshape(E, 1, N * H * W, C), flat_l.reshape(1, -1),
                               valid.reshape(1, -1), classes, max_present, hist_bins, sort_kernels,
-                              hist_kernels)[:, 0]
+                              hist_kernels, mesh, cols)[:, 0]
 
 
 def lovasz_softmax_flat(probas, labels, classes="present", valid=None, max_present=None,
@@ -279,7 +331,8 @@ def lovasz_softmax_flat(probas, labels, classes="present", valid=None, max_prese
 
 
 def lovasz_softmax(probas, labels, classes="present", per_image=False, ignore=None,
-                   apply_softmax=False, max_present=None, hist_bins=None) -> torch.Tensor:
+                   apply_softmax=False, max_present=None, hist_bins=None,
+                   mesh=None, rows=None) -> torch.Tensor:
     """Multi-class Lovász-Softmax loss (lovaszsoftmax.py:154-169), NHWC.
 
     ``probas``: (N, H, W, C) scores (raw logits by default, as the
@@ -287,6 +340,7 @@ def lovasz_softmax(probas, labels, classes="present", per_image=False, ignore=No
     (N, H, W) ints; ``ignore``: the void label, masked; ``per_image``: the
     mean of per-image losses instead of one flat batch; ``hist_bins``: the
     sort-free histogram form with this many buckets (128 times a power of
-    two), approximate."""
+    two), approximate; ``mesh``: this rank's rows of a global batch, whose
+    loss every rank returns, and ``rows`` every rank's row count."""
     return _lovasz_exits(probas[None], labels, classes, per_image, ignore, apply_softmax,
-                         max_present, hist_bins)[0]
+                         max_present, hist_bins, mesh=mesh, rows=rows)[0]

@@ -57,8 +57,9 @@ def confusion_counts(y_pred: torch.Tensor, targets: torch.Tensor,
         pred = _squeeze_target(y_pred)
     N = pred.shape[0]
     K = C + 1
-    pred = pred.reshape(N, -1).long()
-    tgt = _squeeze_target(targets).reshape(N, -1)
+    P = pred.numel() // max(N, 1)  # not -1: a data-parallel rank's block may have no rows
+    pred = pred.reshape(N, P).long()
+    tgt = _squeeze_target(targets).reshape(N, P)
     pred = torch.where((pred >= 0) & (pred < C), pred, C)
     tgt = torch.where((tgt >= 0) & (tgt < C), tgt, C)
     offset = torch.arange(N, device=pred.device)[:, None] * (K * K)

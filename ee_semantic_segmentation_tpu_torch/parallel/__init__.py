@@ -1,1 +1,2 @@
-"""The train step (one device; multi-GPU is a ROADMAP.md item)."""
+"""Data parallelism (``mesh.py``: one process per GPU, explicit collectives)
+and the train step."""

@@ -14,6 +14,10 @@ The sidecar has the same schema as the JAX package's
 rebuild the model from the JSON, and the eval CLIs load a training
 checkpoint through ``.pt`` and ``.json`` alone.  Converting an Orbax
 checkpoint of the JAX package is a ROADMAP.md item.
+
+In a data-parallel run (``mesh``) every rank calls :func:`save_checkpoint`:
+rank 0 writes, and every rank waits at a barrier, so that a load that
+follows reads the whole checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import (
     BranchyConfig,
     BranchyDeepLabV3,
 )
+from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
 
 
 COMPONENTS = ("params", "batch_stats", "opt_state")
@@ -36,11 +41,20 @@ COMPONENTS = ("params", "batch_stats", "opt_state")
 def save_checkpoint(directory: str, name: str, model: torch.nn.Module,
                     config: BranchyConfig | None = None, extra: dict | None = None,
                     optimizer: torch.optim.Optimizer | None = None,
-                    step: int | None = None) -> str:
+                    step: int | None = None, mesh=None) -> str:
     """Save ``model.state_dict()``, the optimizer state and step when an
-    optimizer is given, and the spec; returns the checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    optimizer is given, and the spec; returns the checkpoint path.  With a
+    ``mesh`` rank 0 writes and every rank returns after the barrier."""
     path = os.path.join(directory, name)
+    if mesh is None or mesh.primary:
+        _write(path, model, config, extra, optimizer, step)
+    if mesh is not None:
+        pm.barrier(mesh)
+    return path
+
+
+def _write(path, model, config, extra, optimizer, step) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     torch.save(model.state_dict(), path + ".pt")
     if optimizer is not None:
         torch.save({"optimizer": optimizer.state_dict(), "step": int(step or 0)},
@@ -50,7 +64,6 @@ def save_checkpoint(directory: str, name: str, model: torch.nn.Module,
         meta["config"] = dataclasses.asdict(config)
     with open(path + ".json", "w") as fh:
         json.dump(meta, fh, indent=2, default=str)
-    return path
 
 
 def load_config(path: str) -> BranchyConfig | None:

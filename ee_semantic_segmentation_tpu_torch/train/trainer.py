@@ -1,7 +1,7 @@
 """Training engine and experiment orchestration.
 
 Port of ``ee_semantic_segmentation_tpu/train/trainer.py`` (the reference's
-train_funcs.py:60-269 and deepv3_funcs.py:19-279) on one device:
+train_funcs.py:60-269 and deepv3_funcs.py:19-279):
 
 * the epoch loop runs ``parallel/train_step.make_train_step``'s step over
   the loader's batches; the loss is summed on the device and read to the
@@ -25,6 +25,21 @@ train_funcs.py:60-269 and deepv3_funcs.py:19-279) on one device:
 As in the JAX package, ``num_epochs`` means what it says (the reference
 trains one epoch fewer, SURVEY.md bug #7).  Metrics other than mIoU go
 through the JAX package's generic metric registry, which is not ported.
+
+Data parallelism: :func:`eval_deepv3` joins the process group of a
+``torchrun`` launch through ``parallel/mesh.initialize_multihost`` (the
+counterpart of the JAX trainer's ``mesh or make_mesh()``); without a
+launcher it runs the one-process path.  With a mesh every rank builds the
+same model, which rank 0's weights then overwrite (``replicate``), draws
+the one-process loader's batches of ``batch_size`` (the same permutation
+on every rank), and hands each whole to the global-batch train step
+(``parallel/train_step.py``), which runs this rank's rows of it, as the
+JAX trainer's ``shard_batch`` does; every rank so takes the same steps on
+the same global batches.  Validation and the final test evaluation shard
+each batch over the ranks.  The loss, the validation counts and so the
+early-stopping and LR decisions come out equal on every rank without a
+broadcast.  Rank 0 alone writes checkpoints (the others wait at a
+barrier, then load), CSVs and messages.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import numpy as np
 import torch
 
 from ee_semantic_segmentation_tpu_torch.ee.batch_eval import mIoU_evaluator_fused
+from ee_semantic_segmentation_tpu_torch.parallel import mesh as pm
 from ee_semantic_segmentation_tpu_torch.parallel.train_step import make_train_step
 from ee_semantic_segmentation_tpu_torch.train import checkpoint as ckpt
 from ee_semantic_segmentation_tpu_torch.train.optim import branchy_lr_multipliers, make_optimizer
@@ -49,9 +65,13 @@ REGISTRY_TODO = ("validation metric {!r}: only mIoU is ported; the generic metri
 
 
 def _to_device(batch, device):
-    images = torch.from_numpy(np.ascontiguousarray(batch["image"], np.float32)).to(device)
-    labels = torch.from_numpy(np.ascontiguousarray(batch["label"], np.int32)).to(device)
-    return images, labels
+    """(images, labels) tensors of a host batch on ``device`` (None: left on
+    the host)."""
+    images = torch.from_numpy(np.ascontiguousarray(batch["image"], np.float32))
+    labels = torch.from_numpy(np.ascontiguousarray(batch["label"], np.int32))
+    if device is None:
+        return images, labels
+    return images.to(device), labels.to(device)
 
 
 def _write_tracker_csv(tracker: dict, path: str) -> None:
@@ -90,9 +110,12 @@ def train(
     start_counting=0,
     name=None,
     config=None,
+    mesh=None,
 ):
     """Epoch loop with early stopping; returns (tracker dict, best checkpoint
-    path or None).  ``model`` and ``optimizer`` are updated in place."""
+    path or None).  ``model`` and ``optimizer`` are updated in place.
+    ``mesh``: the data-parallel group ``step_fn`` was built with; validation
+    shards over it and rank 0 writes the checkpoints."""
     for met in metrics:
         if met != "mIoU":
             raise NotImplementedError(REGISTRY_TODO.format(met))
@@ -135,7 +158,8 @@ def train(
         loss_dev = None
         n_batches = 0
         for batch in train_loader:
-            images, labels = _to_device(batch, device)
+            # with a mesh the step moves only this rank's rows to its device
+            images, labels = _to_device(batch, device if mesh is None else None)
             loss = step_fn(images, labels, cur_lr)
             loss_dev = loss if loss_dev is None else loss_dev + loss
             n_batches += 1
@@ -155,7 +179,7 @@ def train(
         if val_loader is not None:
             # 'one' = the reference's intended empty-class guard value
             res = mIoU_evaluator_fused(model, n_exits, nout_channels, val_loader,
-                                       empty_class="one")
+                                       empty_class="one", mesh=mesh)
             if branchy:
                 for key, value in res.items():
                     tracker[f"val_mIoU_{key}"].append(value)
@@ -184,7 +208,7 @@ def train(
                     if k.startswith("val_"):
                         extra[k] = tracker[k][-1]
                 saved_path = ckpt.save_checkpoint(saveat, save_name, model, config, extra,
-                                                  optimizer=optimizer, step=n_steps)
+                                                  optimizer=optimizer, step=n_steps, mesh=mesh)
             best_val = cur_val
             counter = 0
             msg = f"<< {name} progress update >> saved @ {epoch} epoch. Best score: {best_val:.5g}"
@@ -211,6 +235,8 @@ def train_deepv3(model, num_epochs, kwargs):
     loaders, train, best-reload, curve CSV.  Returns the checkpoint path;
     ``model`` holds the best weights afterwards."""
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
+
+    mesh = kwargs.get("mesh")
 
     net_id = kwargs.get("name", kwargs.get("net_id", "model"))
     use_file = kwargs.get("use_file")
@@ -255,7 +281,7 @@ def train_deepv3(model, num_epochs, kwargs):
             scheduler = PolynomialLR(lr, num_epochs, min_lr=min_lr)
 
     step_fn = make_train_step(model, kwargs["loss"], optimizer,
-                              accum_steps=kwargs.get("accum_steps", 1))
+                              accum_steps=kwargs.get("accum_steps", 1), mesh=mesh)
     train_loader = DataLoader(
         kwargs["train_set"], batch_size, shuffle=True,
         num_workers=kwargs.get("num_workers", 4),
@@ -282,11 +308,12 @@ def train_deepv3(model, num_epochs, kwargs):
         scheduler=scheduler, lr=lr, use_file=use_file, minimize=minimize,
         max2min=kwargs.get("max2min", False),
         start_counting=kwargs.get("start_counting", 0), name=net_id,
-        config=model.config,
+        config=model.config, mesh=mesh,
     )
 
     # training-curve CSV (deepv3_funcs.py:182-183)
-    _write_tracker_csv(tracker, os.path.join(res_dir, f"{net_id}_tr.csv"))
+    if pm.is_primary():
+        _write_tracker_csv(tracker, os.path.join(res_dir, f"{net_id}_tr.csv"))
 
     if saved:
         ckpt.load_checkpoint(saved, model, optimizer)
@@ -294,7 +321,7 @@ def train_deepv3(model, num_epochs, kwargs):
         # no epoch improved the tracked metric: keep the final weights so
         # that the evaluation below still has a checkpoint to load
         saved = ckpt.save_checkpoint(res_dir, net_id, model, model.config,
-                                     optimizer=optimizer)
+                                     optimizer=optimizer, mesh=mesh)
     log_msg(f"--> Finished training {net_id}", use_file, True)
     return saved
 
@@ -304,7 +331,9 @@ def eval_deepv3(kwargs):
     from ``torch.manual_seed(seed)`` on the CPU, then moved to
     ``kwargs["device"]``), renegotiate the branch count with the loss,
     train, then append the final test mIoU row to
-    ``./mIoU_{n}_branches_results.csv``.  Returns the checkpoint path."""
+    ``./mIoU_{n}_branches_results.csv``.  Returns the checkpoint path.
+    ``kwargs["mesh"]``, when given (None: one process), is the data-parallel
+    group; else it comes from ``initialize_multihost``."""
     from ee_semantic_segmentation_tpu_torch.cli.common import append_csv
     from ee_semantic_segmentation_tpu_torch.data.loader import DataLoader
     from ee_semantic_segmentation_tpu_torch.models.branchy_deepv3 import (
@@ -320,6 +349,12 @@ def eval_deepv3(kwargs):
     use_file = kwargs.get("use_file")
     n_branches = kwargs["n_branches"]
     device = torch.device(kwargs.get("device", "cuda"))
+    if "mesh" not in kwargs:
+        kwargs["mesh"] = pm.initialize_multihost(device=device.type)
+    mesh = kwargs["mesh"]
+    if mesh is not None:
+        device = mesh.device
+        kwargs["loss"].mesh = mesh
 
     torch.manual_seed(kwargs.get("seed", 0))
     fine_tune = kwargs.get("fine_tune")
@@ -340,6 +375,13 @@ def eval_deepv3(kwargs):
         )
     # NHWC images viewed as NCHW are channels-last: keep the weights so too
     model = model.to(device, memory_format=torch.channels_last)
+    if mesh is not None:
+        pm.replicate(model, mesh)
+        if mesh.rank:
+            # dropout: a stream of its own on every rank, as the JAX package's
+            # one mask over the global batch differs from row to row (rank 0
+            # keeps the one-process stream)
+            torch.manual_seed(kwargs.get("seed", 0) * 1_000_003 + mesh.rank)
 
     if n_branches and n_branches != model.config.n_branches:
         n_branches = model.config.n_branches
@@ -361,12 +403,12 @@ def eval_deepv3(kwargs):
     else:
         if fine_tune:
             ckpt.load_checkpoint(fine_tune, model)
-        saved = ckpt.save_checkpoint(saveat, name, model, model.config)
+        saved = ckpt.save_checkpoint(saveat, name, model, model.config, mesh=mesh)
 
     # final test evaluation (deepv3_funcs.py:264-277)
     test_loader = DataLoader(kwargs["test_set"], kwargs.get("test_batch", 5))
     res_vals = mIoU_evaluator_fused(model, n_branches + 1, kwargs.get("nout_channels", 21),
-                                    test_loader)
+                                    test_loader, mesh=mesh)
     res = defaultdict(list)
     res["net_id"].append(name)
     for k, v in res_vals.items():

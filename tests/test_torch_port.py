@@ -298,8 +298,12 @@ def test_synthetic_data_and_loader_match_jax():
         assert jb["count"] == tb["count"]
         np.testing.assert_array_equal(jb["image"], tb["image"])
         np.testing.assert_array_equal(jb["label"], tb["label"])
-    with pytest.raises(NotImplementedError, match="shard_by_process"):
-        TL(TS(size=8, n=2), 1, shard_by_process=True)
+    # without a process group shard_by_process is the one-process loader
+    # (the JAX loader's at process_count() == 1)
+    for jb, tb in zip(JL(JS(size=8, n=5, seed=2), 2, shuffle=True, shard_by_process=True),
+                      TL(TS(size=8, n=5, seed=2), 2, shuffle=True, shard_by_process=True)):
+        assert jb["count"] == tb["count"]
+        np.testing.assert_array_equal(jb["image"], tb["image"])
 
 
 def test_append_csv_writes_the_jax_layout(tmp_path):
